@@ -1,7 +1,7 @@
 """junctiontree_tpu_torch — the PyTorch/CUDA port of ``junctiontree_tpu``.
 
 Exact inference on discrete factor graphs by the junction-tree algorithm,
-run with PyTorch on a CPU or an NVIDIA GPU.  The JAX package
+run with PyTorch on an NVIDIA GPU (or, when asked, on the CPU).  The JAX package
 ``junctiontree_tpu`` stays the reference: both compile identical plans,
 and the port is tested against it on the same plan and the same evidence.
 This package imports torch and numpy, never JAX.
@@ -15,7 +15,7 @@ Quick start:
     import junctiontree_tpu_torch as jt
 
     tree = jt.create_junction_tree(factors, sizes)
-    eng = tree.engine(device="cuda").set_potentials(values)
+    eng = tree.engine().set_potentials(values)   # CUDA device 0; device="cpu" for the CPU
     posteriors, logz = eng.posterior_batch(jt.batch_masks_sparse(tree.plan, evidence_batch))
 """
 

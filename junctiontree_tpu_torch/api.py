@@ -14,7 +14,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .executor import Engine
+from .executor import Engine, resolve_device
 from .ops.semirings import SEMIRINGS, Semiring
 from .schedule import Plan, compile_plan
 
@@ -98,16 +98,17 @@ class JunctionTree:
         device=None,
         dtype: Optional[torch.dtype] = None,
     ) -> Engine:
-        """The engine for this tree on ``device`` (default CPU) in ``dtype``
-        (default ``config.DEFAULT.storage_dtype``), one per combination."""
+        """The engine for this tree on ``device`` (default CUDA device 0;
+        ``"cpu"`` runs on the CPU) in ``dtype`` (default
+        ``config.DEFAULT.storage_dtype``), one per combination."""
         if isinstance(semiring, Semiring):
             semiring = semiring.name
         if semiring not in SEMIRINGS:
             raise NotImplementedError(
                 f"semiring {semiring!r} is not ported yet (ROADMAP.md)"
             )
-        key = (semiring, str(torch.device("cpu" if device is None else device)),
-               dtype)
+        device = resolve_device(device)
+        key = (semiring, str(device), dtype)
         if key not in self._engines:
             self._engines[key] = Engine(
                 self._plan, SEMIRINGS[semiring], device=device, dtype=dtype
@@ -115,9 +116,14 @@ class JunctionTree:
         return self._engines[key]
 
     def propagate(
-        self, values: Sequence[np.ndarray], semiring: str = "sum_product"
+        self,
+        values: Sequence[np.ndarray],
+        semiring: str = "sum_product",
+        device=None,
     ) -> List[np.ndarray]:
         """Full Hugin propagation: factor values in, unnormalized factor
-        marginals out — same length and shapes as the input list (float64 on
-        the CPU)."""
-        return self.engine(semiring, dtype=torch.float64).propagate(values)
+        marginals out — same length and shapes as the input list (computed
+        in float64 on ``device``, default CUDA device 0)."""
+        return self.engine(
+            semiring, device=device, dtype=torch.float64
+        ).propagate(values)

@@ -24,8 +24,9 @@ def engine_from_numpy(
     device=None,
     dtype: Optional[torch.dtype] = None,
 ) -> Engine:
-    """An :class:`Engine` on ``device`` in ``dtype`` for the plan serialized
-    in ``plan_json``, serving the given clique potentials."""
+    """An :class:`Engine` on ``device`` (default CUDA device 0; ``"cpu"``
+    runs on the CPU) in ``dtype`` for the plan serialized in ``plan_json``,
+    serving the given clique potentials."""
     plan = plan_from_json(plan_json)
     return Engine(plan, device=device, dtype=dtype).set_clique_potentials(
         [np.asarray(p) for p in clique_pots]

@@ -591,13 +591,28 @@ def batched_propagate_program(
     return BatchedProgramBuilder(plan, observed).full()
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means CUDA device 0, and
+    raises where there is none (no quiet fall to the CPU)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "junctiontree_tpu_torch runs on CUDA device 0 by default, and "
+            "torch.cuda.is_available() is false; pass device=\"cpu\" to run "
+            "on the CPU"
+        )
+    return torch.device("cuda", 0)
+
+
 class Engine:
     """Inference engine for one compiled Plan on one torch device.
 
     ``set_potentials`` precomputes clique potentials once; ``query`` and
     ``posterior_batch`` then serve evidence against them.  ``device`` and
-    ``dtype`` place the potentials, masks and messages (default: CPU and
-    ``config.DEFAULT.storage_dtype``)."""
+    ``dtype`` place the potentials, masks and messages (default: CUDA
+    device 0 and ``config.DEFAULT.storage_dtype``; pass ``device="cpu"`` to
+    run on the CPU)."""
 
     def __init__(
         self,
@@ -620,7 +635,7 @@ class Engine:
             )
         self.plan = plan
         self.semiring = semiring
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
         self.dtype = dtype
         self._pots: Optional[List[torch.Tensor]] = None
         self._programs: Dict[tuple, BatchedProgramBuilder] = {}

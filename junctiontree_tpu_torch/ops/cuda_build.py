@@ -93,7 +93,8 @@ def load_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(so)
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.jt_factored_contract.argtypes = [
-            p, p, p, p, p, i32, i64, i64, i64, i64, i32, i32, i64, p,
+            p, p, p, p, p, i32, i32, i64, i64, i64, i64,
+            i32, i32, i32, i64, i32, i32, i32, p,
         ]
         lib.jt_factored_contract.restype = i32
         lib.jt_error_string.argtypes = [i32]
@@ -110,3 +111,30 @@ def build_log() -> str:
         return ""
     with open(log) as f:
         return f.read()
+
+
+def tensor_core_op_counts() -> dict:
+    """Tensor-core operations (``HMMA``, ``HGMMA``, ...) in each compiled
+    kernel of the current library, counted in ``cuobjdump -sass`` and keyed
+    by input type and tiling (``f32_by_n``, ``bf16_by_c``, ...; ``other`` is
+    the fixed-order sum): the float32 kernels must hold none.  {} where the
+    toolkit has no cuobjdump."""
+    nvcc = _nvcc()
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run(
+        [tool, "-sass", library_path()], capture_output=True, text=True,
+        check=True,
+    ).stdout
+    counts = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name = chunk.split("\n", 1)[0].strip()
+        kind = (
+            "bf16" if "__nv_bfloat16" in name else
+            "f32" if "factored_contract_kernelIf" in name else "other"
+        ) + ("_by_n" if "Lb1E" in name else "_by_c" if "Lb0E" in name else "")
+        counts[kind] = sum(
+            chunk.count(op) for op in ("HMMA", "HGMMA", "IMMA", "DMMA", "QGMMA")
+        )
+    return counts

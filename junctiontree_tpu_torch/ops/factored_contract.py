@@ -11,8 +11,10 @@ Any einsum pairing of the three operands materializes a [B, R1*R2]-,
 [B, R1, C]- or [B, R2, C]-sized intermediate.  On the card this runs the
 hand-written CUDA kernel ``csrc/factored_contract.cu`` (it replaces the
 Pallas TPU kernel ``factored_masked_contract``,
-``junctiontree_tpu/ops/pallas_contract.py:181-307``), which keeps the
-weights' product in registers and the output accumulator in f32.
+``junctiontree_tpu/ops/pallas_contract.py:181-307``): a tiled product of
+``w2`` with the potential whose [B, R1, C] result stays in registers and
+shared memory, float32 FMAs for float32 inputs and tensor-core ``mma.sync``
+for bfloat16, with the ``w1`` sum fused behind it.
 
 :func:`reference_factored_contract` is the plain PyTorch version.  The
 wrapper :func:`factored_masked_contract` uses it only for tensors that lie
@@ -21,6 +23,7 @@ on the CPU; for a CUDA tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
+import functools
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -29,9 +32,14 @@ import torch
 from .semirings import SUM_PRODUCT
 
 # kernel tile constants; they must match csrc/factored_contract.cu
-TB = 128  # batch rows per thread block (one per thread)
-KT = 32   # r2 elements per shared-memory tile
-MAX_GRID_YZ = 65535
+BM = 128      # batch rows per block
+BN = 64       # columns per block
+NSTAGE = 3    # shared-memory stages of the cp.async ring
+BK_F32, BK_BF16 = 16, 32          # r2 elements per step
+BY_N_MAX_C = BN // 2   # widest separator whose columns are tiled as (r1, c)
+BLOCKS_PER_SM = 2      # blocks resident on an SM (the kernel's launch bounds)
+MAX_GRID_X = 2**31 - 1
+MAX_SMEM_PER_BLOCK = 232_448
 
 
 def reference_factored_contract(
@@ -51,19 +59,49 @@ def reference_factored_contract(
     return (t.reshape(B, R1, C) * w1.to(dt)[:, :, None]).sum(dim=1)
 
 
-def launch_config(B: int, R1: int, R2: int, C: int, n_sm: int) -> dict:
-    """Grid of the CUDA kernel: output columns per thread (``tc``), blocks
-    along c, b and the r2 split.  When the (c, b) tiles alone cannot fill
-    the card, r2 is split across ``nsplit`` blocks whose partial sums a
-    second kernel adds in a fixed order (deterministic, no atomics)."""
-    tc = 1 if C <= 1 else 2 if C <= 2 else 4 if C <= 4 else 8
-    n_c = -(-C // tc)
-    n_b = -(-B // TB)
-    n_k = -(-R2 // KT)
-    want = max(1, min(n_k, -(-4 * n_sm // (n_b * n_c)), MAX_GRID_YZ))
-    tiles = -(-n_k // want)
-    nsplit = -(-n_k // tiles)
-    return dict(tc=tc, n_c=n_c, n_b=n_b, nsplit=nsplit, k_per_split=tiles * KT)
+def tiles_by_n(C: int) -> bool:
+    """Which of the kernel's two column tilings a separator of C states
+    takes.  True ("n", C <= 32): the columns are n = (r1, c), at least two
+    r1 to a 64-column tile, and the kernel reads pot as [R2, R1*C] rows.
+    False ("c"): the columns are c, r1 is looped inside the block, and the
+    kernel reads pot as [R1, R2, C]."""
+    return C <= BY_N_MAX_C
+
+
+def launch_config(
+    B: int, R1: int, R2: int, C: int, n_sm: int, bf16: bool = False
+) -> dict:
+    """Grid of the CUDA kernel.  A block owns ``BM`` batch rows by ``BN``
+    columns (see :func:`tiles_by_n`) and one range of r2, ``k_per_split``
+    long, walked in steps of ``bk``.  When the row and column tiles alone
+    cannot fill the card, r2 is split across ``nsplit`` blocks.  Each of the
+    ``nparts`` partial [B, C] sums (one per r2 range, and with the "n" tiling
+    per column tile) is added by a second kernel in a fixed order:
+    deterministic, no atomics.  ``grid`` blocks in all, numbered
+    ``(split * n_n + column tile) * n_b + row tile``; ``smem_bytes`` is the
+    block's shared memory."""
+    by_n = tiles_by_n(C)
+    bk = BK_BF16 if bf16 else BK_F32
+    n_b = -(-B // BM)
+    n_n = -(-(R1 * C if by_n else C) // BN)
+    n_k = -(-R2 // bk)
+    want = max(1, min(n_k, BLOCKS_PER_SM * n_sm // (n_b * n_n)))  # one wave
+    steps = -(-n_k // want)
+    nsplit = -(-n_k // steps)
+    # padded w2 [BM, bk] and pot [bk, BN] tiles, as csrc/factored_contract.cu
+    stage = (BM * (bk + 8) + bk * (BN + 8)) * 2 if bf16 \
+        else (BM * (bk + 4) + bk * BN) * 4
+    return dict(
+        by_n=by_n, bk=bk, n_b=n_b, n_n=n_n, nsplit=nsplit,
+        k_per_split=steps * bk, nparts=nsplit * n_n if by_n else nsplit,
+        grid=n_b * n_n * nsplit,
+        smem_bytes=max(NSTAGE * stage, BM * (BN + 1) * 4),
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def factored_masked_contract(
@@ -73,9 +111,12 @@ def factored_masked_contract(
 
     pot: [R1, R2, C], w1: [B, R1], w2: [B, R2]; float32 or bfloat16 on the
     card (any bf16 input puts pot and w2 in bf16; w1 is read as f32; the
-    accumulator and the [B, C] output are f32).  CPU tensors take
-    :func:`reference_factored_contract`.  Each kernel launch adds one to
-    ``factored_masked_contract.launches``."""
+    accumulator and the [B, C] output are f32).  With C <= 32 the kernel
+    reads pot as [R2, R1*C] rows: a pot that is a ``permute(1, 0, 2)`` view
+    of a contiguous [R2, R1, C] tensor, as :func:`big_clique_sep_message`
+    passes it, is used as it is, and any other is copied once.  CPU tensors
+    take :func:`reference_factored_contract`.  Each kernel launch adds one
+    to ``factored_masked_contract.launches``."""
     if not pot.is_cuda:
         return reference_factored_contract(pot, w1, w2)
     if pot.dim() != 3 or w1.dim() != 2 or w2.dim() != 2:
@@ -92,20 +133,28 @@ def factored_masked_contract(
     dtypes = {pot.dtype, w1.dtype, w2.dtype}
     if not dtypes <= {torch.float32, torch.bfloat16}:
         raise TypeError(f"the CUDA kernel takes float32 or bfloat16, got {dtypes}")
-    in_dtype = torch.bfloat16 if torch.bfloat16 in dtypes else torch.float32
-    pot = pot.to(in_dtype).contiguous()
-    w2 = w2.to(in_dtype).contiguous()
-    w1 = w1.to(torch.float32).contiguous()
+    bf16 = torch.bfloat16 in dtypes
+    in_dtype = torch.bfloat16 if bf16 else torch.float32
     out = torch.empty((B, C), dtype=torch.float32, device=pot.device)
     if out.numel() == 0 or R1 == 0 or R2 == 0:
         return out.zero_()
-    n_sm = torch.cuda.get_device_properties(pot.device).multi_processor_count
-    cfg = launch_config(B, R1, R2, C, n_sm)
-    if cfg["n_b"] > MAX_GRID_YZ:
-        raise ValueError(f"batch of {B} rows exceeds the kernel's grid")
+    cfg = launch_config(B, R1, R2, C, _sm_count(pot.device), bf16)
+    if cfg["grid"] > MAX_GRID_X or R1 * C > MAX_GRID_X:
+        raise ValueError(
+            f"shape (B={B}, R1={R1}, R2={R2}, C={C}) exceeds the kernel's "
+            "32-bit block and column indices"
+        )
+    # no copy where the caller already has the dtype and layout the kernel reads
+    pot = (pot.permute(1, 0, 2) if cfg["by_n"] else pot).to(in_dtype).contiguous()
+    w2 = w2.to(in_dtype).contiguous()
+    w1 = w1.to(torch.float32).contiguous()
+    chunk = 16 // pot.element_size()  # elements per 16-byte cp.async
+    ncols = R1 * C if cfg["by_n"] else C
+    vec_a = w2.data_ptr() % 16 == 0 and R2 % chunk == 0
+    vec_b = pot.data_ptr() % 16 == 0 and ncols % chunk == 0
     ws = (
-        out if cfg["nsplit"] == 1
-        else torch.empty((cfg["nsplit"], B, C), dtype=torch.float32,
+        out if cfg["nparts"] == 1
+        else torch.empty((cfg["nparts"], B, C), dtype=torch.float32,
                          device=pot.device)
     )
     from .cuda_build import load_library
@@ -115,9 +164,9 @@ def factored_masked_contract(
     with torch.cuda.device(pot.device):
         rc = lib.jt_factored_contract(
             pot.data_ptr(), w1.data_ptr(), w2.data_ptr(), out.data_ptr(),
-            ws.data_ptr(), int(in_dtype == torch.bfloat16),
-            B, R1, R2, C, cfg["tc"], cfg["nsplit"], cfg["k_per_split"],
-            stream,
+            ws.data_ptr(), int(bf16), int(cfg["by_n"]), B, R1, R2, C,
+            cfg["n_b"], cfg["n_n"], cfg["nsplit"], cfg["k_per_split"],
+            cfg["nparts"], int(vec_a), int(vec_b), stream,
         )
     if rc != 0:
         raise RuntimeError(
@@ -306,13 +355,9 @@ def big_clique_sep_message(
         g1_items, g1_vars, g2_items, g2_vars = _group_items(items, sizes)
         grouped = set(g1_vars) | set(g2_vars)
         un_vars = [v for v in rest if v not in grouped]
-        new_rest = g1_vars + g2_vars + un_vars
-        perm2 = [rest.index(v) for v in new_rest] + list(
-            range(len(rest), p.dim())
-        )
-        p = p.permute(perm2)
+        g2_axes = g2_vars + un_vars
         R1 = int(np.prod([sizes[v] for v in g1_vars])) or 1
-        R2 = int(np.prod([sizes[v] for v in g2_vars + un_vars])) or 1
+        R2 = int(np.prod([sizes[v] for v in g2_axes])) or 1
         w1 = _contract_items(g1_items, g1_vars, B, sizes) if g1_items else ones(1)
         w2 = _contract_items(g2_items, g2_vars, B, sizes) if g2_items else ones(1)
         # w2 broadcast over uncovered rest axes
@@ -320,9 +365,20 @@ def big_clique_sep_message(
         if n_un > 1:
             w2 = w2[:, :, None].expand(B, w2.shape[1], n_un).reshape(B, -1)
     else:
+        g1_vars, g2_axes = [], rest
         R1, R2 = 1, R
         w1, w2 = ones(1), ones(R)
-    p3 = p.reshape(R1, R2, C)
+    # the one copy of the permuted potential lands in the layout the kernel
+    # reads: [R2, R1, C] rows for a small separator, else [R1, R2, C]
+    r2_first = tiles_by_n(C)
+    order = g2_axes + g1_vars if r2_first else g1_vars + g2_axes
+    p = p.permute(
+        [rest.index(v) for v in order] + list(range(len(rest), p.dim()))
+    )
+    p3 = (
+        p.reshape(R2, R1, C).permute(1, 0, 2) if r2_first
+        else p.reshape(R1, R2, C)
+    )
 
     big_clique_sep_message.calls += 1
     if p3.is_cuda and p3.dtype not in (torch.float32, torch.bfloat16):

@@ -26,7 +26,8 @@ def _case(name):
 @pytest.mark.parametrize("name", ["sprinkler", "grid3x3", "random2", "random5"])
 def test_propagate_matches_jax_and_oracle(name):
     factors, sizes, values = _case(name)
-    got = jt.create_junction_tree(factors, sizes).propagate(values)
+    got = jt.create_junction_tree(factors, sizes).propagate(
+        values, device="cpu")
     want = jt_jax.create_junction_tree(factors, sizes).propagate(values)
     oracle = brute_force_marginals(factors, sizes, values, factors)
     assert len(got) == len(values)
@@ -45,7 +46,7 @@ def test_query_matches_jax_and_oracle(name):
         factors, sizes, values = alarm_like(seed=3)
         evidence = {"n0": 0, "n10": 1, "n30": 0}
     tree = jt.create_junction_tree(factors, sizes)
-    eng = tree.engine(dtype=torch.float64).set_potentials(values)
+    eng = tree.engine(device="cpu", dtype=torch.float64).set_potentials(values)
     margs, z = eng.query(evidence)
     jmargs, jz = jt_jax.create_junction_tree(factors, sizes).engine() \
         .set_potentials(values).query(evidence)
@@ -63,7 +64,7 @@ def test_query_matches_jax_and_oracle(name):
 def _sprinkler_engine():
     factors, sizes, values = sprinkler_model()
     tree = jt.create_junction_tree(factors, sizes)
-    return tree, tree.engine(dtype=torch.float64).set_potentials(values)
+    return tree, tree.engine(device="cpu", dtype=torch.float64).set_potentials(values)
 
 
 def test_sprinkler_rain_given_wet_grass():
@@ -97,7 +98,7 @@ def test_full_instantiation_gives_joint_probability():
 
 def test_bad_queries_raise():
     factors, sizes, values = sprinkler_model()
-    eng = jt.create_junction_tree(factors, sizes).engine()
+    eng = jt.create_junction_tree(factors, sizes).engine(device="cpu")
     with pytest.raises(RuntimeError, match="set_potentials"):
         eng.query({"rain": 1})
     eng.set_potentials(values)
@@ -107,3 +108,25 @@ def test_bad_queries_raise():
         eng.query({"rain": 2})
     with pytest.raises(ValueError, match="shape"):
         eng.set_potentials([np.ones(3)] + values[1:])
+
+
+@pytest.mark.parametrize("entry", ["Engine", "engine", "propagate", "engine_from_numpy"])
+def test_default_device_is_the_card_and_raises_without_one(entry, monkeypatch):
+    """With no ``device`` every entry point means CUDA device 0; where there
+    is none it raises and names the ``device="cpu"`` way out."""
+    from junctiontree_tpu_torch.executor import Engine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    factors, sizes, values = sprinkler_model()
+    tree = jt.create_junction_tree(factors, sizes)
+    calls = {
+        "Engine": lambda: Engine(tree.plan),
+        "engine": lambda: tree.engine(),
+        "propagate": lambda: tree.propagate(values),
+        "engine_from_numpy": lambda: jt.engine_from_numpy(
+            tree.plan.to_json(),
+            tree.engine(device="cpu").set_potentials(values)._pots,
+        ),
+    }
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        calls[entry]()

@@ -13,7 +13,7 @@ from junctiontree_tpu_torch.models import sprinkler_model
 
 factors, sizes, values = sprinkler_model()
 tree = jt.create_junction_tree(factors, sizes)
-eng = tree.engine().set_potentials(values)
+eng = tree.engine(device="cpu").set_potentials(values)
 rain = tree.plan.table.id_of("rain")
 post, p_wet = eng.query({"wet_grass": 1})
 batch, logz = eng.posterior_batch(jt.batch_masks_sparse(tree.plan, [{"wet_grass": 1}]))

@@ -54,7 +54,7 @@ def test_posterior_batch_matches_jax(name):
     tree = jt.create_junction_tree(factors, sizes)
     labels = list(sizes)[::3]
     masks = _masks(tree.plan, 6, labels, seed=5)
-    eng = tree.engine(dtype=torch.float64).set_potentials(values)
+    eng = tree.engine(device="cpu", dtype=torch.float64).set_potentials(values)
     post, logz = eng.posterior_batch(masks)
     assert logz.dtype == torch.float64 and tuple(logz.shape) == (6,)
     jeng = jt_jax.create_junction_tree(factors, sizes).engine() \
@@ -92,7 +92,7 @@ def test_big_clique_route_matches_jax_kernel(monkeypatch):
     labels = ["t0", "t1", "t2", "h5", "h6", "h7"]
     masks = _masks(tree.plan, 8, labels, seed=9)
     before = fc.big_clique_sep_message.calls
-    eng = tree.engine(dtype=torch.float32).set_potentials(values)
+    eng = tree.engine(device="cpu", dtype=torch.float32).set_potentials(values)
     post, logz = eng.posterior_batch(masks)
     assert fc.big_clique_sep_message.calls > before
     jax_kernel_calls = []
@@ -137,7 +137,7 @@ def test_engine_from_numpy_serves_the_jax_state():
 def test_posterior_modes():
     factors, sizes, values = grid_mrf_model(2, 2, seed=0)
     tree = jt.create_junction_tree(factors, sizes)
-    eng = tree.engine().set_potentials(values)
+    eng = tree.engine(device="cpu").set_potentials(values)
     masks = jt.batch_masks(tree.plan, [{"g0_0": 1}, {}])
     a, za = eng.posterior_batch(masks, mode="auto")
     b, zb = eng.posterior_batch(masks, mode="general")
