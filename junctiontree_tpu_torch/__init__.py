@@ -17,11 +17,19 @@ Quick start:
     tree = jt.create_junction_tree(factors, sizes)
     eng = tree.engine().set_potentials(values)   # CUDA device 0; device="cpu" for the CPU
     posteriors, logz = eng.posterior_batch(jt.batch_masks_sparse(tree.plan, evidence_batch))
+
+``tree.engine("log_sum_exp")`` and ``tree.engine("max_product")`` serve in
+log space; ``dtype=torch.bfloat16`` stores the sum-product serving program
+in bfloat16; ``posterior_batch(..., chunk=N)`` bounds the step's memory.
 """
 
 from .api import CliqueGraph, FactorGraph, JunctionTree, create_junction_tree
 from .config import DEFAULT, Config
-from .convert import engine_from_numpy
+from .convert import (
+    chain_stack_from_numpy,
+    engine_from_numpy,
+    fused_stacks_from_numpy,
+)
 from .evidence import batch_masks, batch_masks_sparse, random_evidence_batch
 from .executor import Engine, batched_propagate_program, evidence_to_masks
 from .ops.factored_contract import (
@@ -29,7 +37,7 @@ from .ops.factored_contract import (
     factored_masked_contract,
     reference_factored_contract,
 )
-from .ops.semirings import SEMIRINGS, SUM_PRODUCT
+from .ops.semirings import LOG_SUM_EXP, MAX_PRODUCT, SEMIRINGS, SUM_PRODUCT
 from .schedule import Plan, compile_plan, load_plan, plan_from_json
 
 __version__ = "0.1.0"
@@ -47,6 +55,8 @@ __all__ = [
     "plan_from_json",
     "load_plan",
     "engine_from_numpy",
+    "chain_stack_from_numpy",
+    "fused_stacks_from_numpy",
     "batch_masks",
     "batch_masks_sparse",
     "random_evidence_batch",
@@ -56,6 +66,8 @@ __all__ = [
     "factored_masked_contract",
     "reference_factored_contract",
     "SUM_PRODUCT",
+    "LOG_SUM_EXP",
+    "MAX_PRODUCT",
     "SEMIRINGS",
     "__version__",
 ]

@@ -100,12 +100,14 @@ class JunctionTree:
     ) -> Engine:
         """The engine for this tree on ``device`` (default CUDA device 0;
         ``"cpu"`` runs on the CPU) in ``dtype`` (default
-        ``config.DEFAULT.storage_dtype``), one per combination."""
+        ``config.DEFAULT.storage_dtype``; see :class:`Engine`), one per
+        combination.  ``semiring``: "sum_product", "log_sum_exp" or
+        "max_product", or the Semiring itself."""
         if isinstance(semiring, Semiring):
             semiring = semiring.name
         if semiring not in SEMIRINGS:
-            raise NotImplementedError(
-                f"semiring {semiring!r} is not ported yet (ROADMAP.md)"
+            raise ValueError(
+                f"unknown semiring {semiring!r}; one of {sorted(SEMIRINGS)}"
             )
         device = resolve_device(device)
         key = (semiring, str(device), dtype)

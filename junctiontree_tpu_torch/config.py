@@ -22,9 +22,20 @@ class Config:
     # kernel on the card; counterpart of the JAX ``pallas_min_states``)
     big_clique_min_states: int = 1 << 17
 
-    # default dtype of an Engine's potentials, masks and messages when the
-    # caller passes none ("float32" or "float64")
+    # default ``dtype`` of an Engine when the caller passes none: "float32",
+    # "float64", or "bfloat16" (storage of the rescaled sum-product serving
+    # program only: potentials and messages sit in bfloat16,
+    # contractions accumulate in float32, results are float32; the parity
+    # paths and log-space engines stay float32)
     storage_dtype: str = "float32"
+
+    # distribute-pass Hugin division trick (executor.divide_project): derive
+    # each child's down-message from the clique belief by guarded division
+    # instead of leave-one-out products, and reuse the belief for the
+    # marginal phase.  Sum-product and log-sum-exp only, on cliques small
+    # enough that their belief is materialized anyway.  Off by default, as
+    # in the JAX package; read when a serving program is built.
+    distribute_division: bool = False
 
 
 DEFAULT = Config()

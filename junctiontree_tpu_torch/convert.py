@@ -1,20 +1,25 @@
 """Carry a serving state across from the JAX package.
 
 The JAX package's compiled ``Plan.to_json()`` and its engine's evaluated
-clique potentials (numpy arrays, one per clique in the plan's axis order)
-are all an engine needs: with them the port serves the same tree with the
-same numbers, without re-triangulating or re-evaluating factors.  This is
-the port's counterpart of carrying trained weights over.
+clique potentials (numpy arrays, one per clique in the plan's axis order,
+in the engine's semiring space) are all an engine needs: with them the port
+serves the same tree with the same numbers, without re-triangulating or
+re-evaluating factors.  This is the port's counterpart of carrying trained
+weights over.  The stacked forms that the chain and level-fused programs
+read are functions of the same arrays.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .executor import Engine
+from .fused import build_fused_schedule, stack_group_potentials
+from .ops.semirings import SUM_PRODUCT, Semiring
+from .scan_executor import ChainLayout, stack_chain_potentials
 from .schedule import plan_from_json
 
 
@@ -23,11 +28,33 @@ def engine_from_numpy(
     clique_pots: Sequence[np.ndarray],
     device=None,
     dtype: Optional[torch.dtype] = None,
+    semiring: Semiring = SUM_PRODUCT,
 ) -> Engine:
     """An :class:`Engine` on ``device`` (default CUDA device 0; ``"cpu"``
-    runs on the CPU) in ``dtype`` for the plan serialized in ``plan_json``,
-    serving the given clique potentials."""
+    runs on the CPU) in ``dtype`` and ``semiring`` for the plan serialized
+    in ``plan_json``, serving the given clique potentials (which are in
+    that semiring's space)."""
     plan = plan_from_json(plan_json)
-    return Engine(plan, device=device, dtype=dtype).set_clique_potentials(
-        [np.asarray(p) for p in clique_pots]
-    )
+    return Engine(
+        plan, semiring, device=device, dtype=dtype
+    ).set_clique_potentials([np.asarray(p) for p in clique_pots])
+
+
+def chain_stack_from_numpy(
+    plan_json: str, clique_pots: Sequence[np.ndarray]
+) -> np.ndarray:
+    """The [m, K, K] transition stack the chain program reads, from the
+    clique potentials of a uniform-chain plan."""
+    layout = ChainLayout.detect(plan_from_json(plan_json))
+    if layout is None:
+        raise ValueError("the plan is not a uniform chain")
+    return stack_chain_potentials(layout, clique_pots)
+
+
+def fused_stacks_from_numpy(
+    plan_json: str, clique_pots: Sequence[np.ndarray]
+) -> List[List[np.ndarray]]:
+    """The per-level, per-group [G, *shape] stacks the level-fused program
+    reads, from the clique potentials."""
+    sched, _ = build_fused_schedule(plan_from_json(plan_json))
+    return stack_group_potentials(sched, clique_pots)

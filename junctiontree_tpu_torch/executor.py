@@ -7,16 +7,22 @@ clique scope; distribute recomputes leave-one-out products (no division, so
 structural zeros are safe); evidence is a per-variable mask combined into
 one clique per variable (``Plan.var_to_clique``).
 
-Two paths:
+Every function takes the semiring (sum-product, log-sum-exp, max-product;
+``ops/semirings.py``).  Two paths:
 
-* the unbatched parity path (``propagate_cliques``; ``Engine.propagate`` and
-  ``Engine.query``), which every batched result is checked against;
-* the serving path ``Engine.posterior_batch``: the batch-aware, rescaled
-  message program built by :class:`BatchedProgramBuilder`.  Clique potentials
-  stay unbatched and only masks and messages carry the batch axis; large
-  cliques go through the factored big-clique contraction (the CUDA kernel on
-  the card, ``ops/factored_contract.py``), everything else through the
-  planned einsum of ``ops/semirings.py``.
+* the parity path (``propagate_cliques``; ``Engine.propagate``,
+  ``Engine.query`` and the batched ``Engine.query_batch``), which every
+  serving result is checked against;
+* the serving path ``Engine.posterior_batch``.  Its general program is the
+  batch-aware message program built by :class:`BatchedProgramBuilder`
+  (rescaled for sum-product, optionally stored in bfloat16): clique
+  potentials stay unbatched and only masks and messages carry the batch
+  axis; large sum-product cliques go through the factored big-clique
+  contraction (the CUDA kernel on the card, ``ops/factored_contract.py``),
+  everything else through the semiring's planned contraction.  In auto mode
+  uniform chains take the forward-backward program of ``scan_executor.py``
+  and regular models of many small cliques the level-fused program of
+  ``fused.py``.
 
 PyTorch runs eagerly, so there is no jit and no program cache beyond the
 builder's static schedule.
@@ -31,17 +37,26 @@ import torch
 
 from .config import DEFAULT as _CFG
 from .ops.factored_contract import big_clique_sep_message
-from .ops.semirings import SUM_PRODUCT, Semiring, _broadcast_to_scope
+from .ops.semirings import (
+    _LOW_PRECISION,
+    LOG_SUM_EXP,
+    MAX_PRODUCT,
+    SEMIRINGS,
+    SUM_PRODUCT,
+    Semiring,
+    _broadcast_to_scope,
+)
 from .schedule import Plan
 
 
 def _combine_into_scope(
+    semiring: Semiring,
     acc: torch.Tensor,
     scope: Sequence[int],
     x: torch.Tensor,
     x_vars: Sequence[int],
 ) -> torch.Tensor:
-    return acc * _broadcast_to_scope(x, x_vars, scope)
+    return semiring.combine(acc, _broadcast_to_scope(x, x_vars, scope))
 
 
 # exact inference materializes every clique's state space; beyond this limit
@@ -67,14 +82,63 @@ def check_feasible(plan: Plan, max_states: Optional[int] = None) -> None:
         )
 
 
+def evaluate_cliques(
+    plan: Plan,
+    factor_values: Sequence[torch.Tensor],
+    semiring: Semiring = SUM_PRODUCT,
+    max_states: Optional[int] = None,
+) -> List[torch.Tensor]:
+    """Initial clique potentials on the tensors' device: product of the
+    assigned factors, broadcast to the full clique shape (Hugin
+    initialization).  ``factor_values`` are in the semiring's space already
+    (use ``semiring.from_linear`` at the boundary)."""
+    check_feasible(plan, max_states)
+    if len(factor_values) != len(plan.factors):
+        raise ValueError(
+            "expected %d factor value arrays, got %d"
+            % (len(plan.factors), len(factor_values))
+        )
+    for f, (fvars, val) in enumerate(zip(plan.factors, factor_values)):
+        want = plan.factor_shape(f)
+        if tuple(val.shape) != want:
+            raise ValueError(
+                "factor %d (vars %r) has shape %r, expected %r"
+                % (f, plan.table.labels_of(fvars), tuple(val.shape), want)
+            )
+    if factor_values:
+        ref = factor_values[0]
+        dtype = ref.dtype
+        for val in factor_values[1:]:
+            dtype = torch.promote_types(dtype, val.dtype)
+        device = ref.device
+    else:
+        dtype, device = torch.float32, None
+    pots = [
+        torch.full(plan.clique_shape(c), semiring.one, dtype=dtype, device=device)
+        for c in range(plan.tri.num_cliques)
+    ]
+    for f, (fvars, val) in enumerate(zip(plan.factors, factor_values)):
+        c = plan.tri.factor_to_maxclique[f]
+        if c < 0:  # empty-scope (scalar) factor folds into the root clique
+            c = plan.tree.root
+            pots[c] = semiring.combine(pots[c], val)
+            continue
+        pots[c] = _combine_into_scope(
+            semiring, pots[c], plan.clique_vars[c], val, fvars
+        )
+    return pots
+
+
 def evaluate_cliques_np(
     plan: Plan,
     factor_values: Sequence[np.ndarray],
+    semiring: Semiring = SUM_PRODUCT,
     dtype=np.float64,
     max_states: Optional[int] = None,
 ) -> List[np.ndarray]:
-    """Initial clique potentials on the host: product of assigned factors,
-    broadcast to the full clique shape (Hugin initialization)."""
+    """Host-side NumPy clique evaluation (same math as
+    :func:`evaluate_cliques`): one-time elementwise work per
+    ``set_potentials``, done where the factor values already are."""
     check_feasible(plan, max_states)
     if len(factor_values) != len(plan.factors):
         raise ValueError(
@@ -83,7 +147,7 @@ def evaluate_cliques_np(
         )
     pots: List[np.ndarray] = []
     for c in range(plan.tri.num_cliques):
-        pots.append(np.ones(plan.clique_shape(c), dtype=dtype))
+        pots.append(np.full(plan.clique_shape(c), semiring.one, dtype=dtype))
     for f, (fvars, val) in enumerate(zip(plan.factors, factor_values)):
         val = np.asarray(val, dtype=dtype)
         want = plan.factor_shape(f)
@@ -95,14 +159,15 @@ def evaluate_cliques_np(
         c = plan.tri.factor_to_maxclique[f]
         if c < 0:  # empty-scope (scalar) factor folds into the root clique
             c = plan.tree.root
-            pots[c] = pots[c] * val
+            pots[c] = (pots[c] + val) if semiring.is_log else (pots[c] * val)
             continue
         cvars = plan.clique_vars[c]
         pos = {v: i for i, v in enumerate(fvars)}
         perm = [pos[v] for v in cvars if v in pos]
         x = np.transpose(val, perm)
         shape = [(plan.sizes[v] if v in pos else 1) for v in cvars]
-        pots[c] = pots[c] * x.reshape(shape)
+        x = x.reshape(shape)
+        pots[c] = (pots[c] + x) if semiring.is_log else (pots[c] * x)
     return pots
 
 
@@ -110,19 +175,23 @@ def apply_masks(
     plan: Plan,
     clique_pots: Sequence[torch.Tensor],
     masks: Sequence[torch.Tensor],
+    semiring: Semiring = SUM_PRODUCT,
 ) -> List[torch.Tensor]:
-    """Combine per-variable evidence masks (one [size_v] vector per variable
-    id) into each variable's designated clique."""
+    """Combine per-variable evidence masks (semiring space, one [size_v]
+    vector per variable id) into each variable's designated clique."""
     pots = list(clique_pots)
     for v, m in enumerate(masks):
         c = plan.var_to_clique[v]
-        pots[c] = _combine_into_scope(pots[c], plan.clique_vars[c], m, [v])
+        pots[c] = _combine_into_scope(
+            semiring, pots[c], plan.clique_vars[c], m, [v]
+        )
     return pots
 
 
 def propagate_cliques(
     plan: Plan,
     clique_pots: Sequence[torch.Tensor],
+    semiring: Semiring = SUM_PRODUCT,
 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Two-pass collect/distribute over the static schedule.
 
@@ -142,7 +211,7 @@ def propagate_cliques(
         for child, sep in tree.children[c]:
             operands.append(up[child])
             operand_vars.append(svars[sep])
-        up[c] = SUM_PRODUCT.contract(
+        up[c] = semiring.contract(
             operands, operand_vars, svars[tree.parent_sep[c]]
         )
 
@@ -158,7 +227,7 @@ def propagate_cliques(
         acc = clique_pots[p]
         if p != tree.root:
             acc = _combine_into_scope(
-                acc, cvars[p], down[p], svars[tree.parent_sep[p]]
+                semiring, acc, cvars[p], down[p], svars[tree.parent_sep[p]]
             )
         d = len(kids)
         bcast = [
@@ -166,25 +235,25 @@ def propagate_cliques(
         ]
         if d == 1:
             k, s = kids[0]
-            down[k] = SUM_PRODUCT.contract([acc], [cvars[p]], svars[s])
+            down[k] = semiring.contract([acc], [cvars[p]], svars[s])
             continue
         prefix: List[Optional[torch.Tensor]] = [None] * d
         suffix: List[Optional[torch.Tensor]] = [None] * d
         run = None
         for i in range(d):
             prefix[i] = run
-            run = bcast[i] if run is None else run * bcast[i]
+            run = bcast[i] if run is None else semiring.combine(run, bcast[i])
         run = None
         for i in range(d - 1, -1, -1):
             suffix[i] = run
-            run = bcast[i] if run is None else run * bcast[i]
+            run = bcast[i] if run is None else semiring.combine(run, bcast[i])
         for i, (k, s) in enumerate(kids):
             loo = acc
             if prefix[i] is not None:
-                loo = loo * prefix[i]
+                loo = semiring.combine(loo, prefix[i])
             if suffix[i] is not None:
-                loo = loo * suffix[i]
-            down[k] = SUM_PRODUCT.contract([loo], [cvars[p]], svars[s])
+                loo = semiring.combine(loo, suffix[i])
+            down[k] = semiring.contract([loo], [cvars[p]], svars[s])
 
     # ---- beliefs ----
     clique_beliefs: List[Optional[torch.Tensor]] = [None] * tree.num_cliques
@@ -192,10 +261,10 @@ def propagate_cliques(
         acc = clique_pots[c]
         if c != tree.root:
             acc = _combine_into_scope(
-                acc, cvars[c], down[c], svars[tree.parent_sep[c]]
+                semiring, acc, cvars[c], down[c], svars[tree.parent_sep[c]]
             )
         for k, s in tree.children[c]:
-            acc = _combine_into_scope(acc, cvars[c], up[k], svars[s])
+            acc = _combine_into_scope(semiring, acc, cvars[c], up[k], svars[s])
         clique_beliefs[c] = acc
 
     sep_beliefs: List[Optional[torch.Tensor]] = [None] * len(svars)
@@ -203,7 +272,7 @@ def propagate_cliques(
         if c == tree.root:
             continue
         s = tree.parent_sep[c]
-        sep_beliefs[s] = up[c] * down[c]
+        sep_beliefs[s] = semiring.combine(up[c], down[c])
 
     return clique_beliefs, sep_beliefs
 
@@ -211,6 +280,7 @@ def propagate_cliques(
 def factor_marginals(
     plan: Plan,
     clique_beliefs: Sequence[torch.Tensor],
+    semiring: Semiring = SUM_PRODUCT,
 ) -> List[torch.Tensor]:
     """Project consistent clique beliefs back onto each factor's variables.
     Empty-scope factors marginalize the root belief to a scalar (= Z)."""
@@ -220,7 +290,7 @@ def factor_marginals(
         if c < 0:
             c = plan.tree.root
         out.append(
-            SUM_PRODUCT.contract([clique_beliefs[c]], [plan.clique_vars[c]], fvars)
+            semiring.contract([clique_beliefs[c]], [plan.clique_vars[c]], fvars)
         )
     return out
 
@@ -228,13 +298,14 @@ def factor_marginals(
 def var_marginals(
     plan: Plan,
     clique_beliefs: Sequence[torch.Tensor],
+    semiring: Semiring = SUM_PRODUCT,
 ) -> List[torch.Tensor]:
     """Per-variable unnormalized marginals, one [size_v] vector per var id."""
     out: List[torch.Tensor] = []
     for v in range(plan.num_vars):
         c = plan.var_to_clique[v]
         out.append(
-            SUM_PRODUCT.contract([clique_beliefs[c]], [plan.clique_vars[c]], [v])
+            semiring.contract([clique_beliefs[c]], [plan.clique_vars[c]], [v])
         )
     return out
 
@@ -242,24 +313,26 @@ def var_marginals(
 def partition(
     plan: Plan,
     clique_beliefs: Sequence[torch.Tensor],
+    semiring: Semiring = SUM_PRODUCT,
 ) -> torch.Tensor:
     """Normalization constant: the root belief fully marginalized."""
     r = plan.tree.root
-    return SUM_PRODUCT.contract([clique_beliefs[r]], [plan.clique_vars[r]], [])
+    return semiring.contract([clique_beliefs[r]], [plan.clique_vars[r]], [])
 
 
-def all_ones_masks(plan: Plan) -> List[np.ndarray]:
-    """No-evidence masks."""
-    return [np.ones((s,), dtype=np.float32) for s in plan.sizes]
+def all_ones_masks(plan: Plan, semiring: Semiring = SUM_PRODUCT) -> List[np.ndarray]:
+    """No-evidence masks (semiring space)."""
+    return [np.full((s,), semiring.one, dtype=np.float32) for s in plan.sizes]
 
 
 def evidence_to_masks(
     plan: Plan,
     evidence: Dict[Hashable, int],
+    semiring: Semiring = SUM_PRODUCT,
 ) -> List[np.ndarray]:
     """Dict {var label: observed state} -> per-variable mask vectors:
-    entries inconsistent with the evidence become zero."""
-    masks = all_ones_masks(plan)
+    entries inconsistent with the evidence become the semiring zero."""
+    masks = all_ones_masks(plan, semiring)
     for label, state in evidence.items():
         if label not in plan.table:
             raise KeyError(
@@ -271,8 +344,8 @@ def evidence_to_masks(
                 "evidence state %r out of range for variable %r (size %d)"
                 % (state, label, plan.sizes[v])
             )
-        m = np.zeros((plan.sizes[v],), dtype=np.float32)
-        m[int(state)] = 1.0
+        m = np.full((plan.sizes[v],), semiring.zero, dtype=np.float32)
+        m[int(state)] = semiring.one
         masks[v] = m
     return masks
 
@@ -299,20 +372,23 @@ def _vars_states(sizes, vs):
     return n
 
 
-def _bcontract(operands, operand_vars, out_vars):
+def _bcontract(semiring, operands, operand_vars, out_vars):
     """Contract mixed batched/unbatched operands; output gets the batch axis
     iff any operand has it."""
     batched = any(vs and vs[0] == BATCH for vs in operand_vars)
     out = ([BATCH] + list(out_vars)) if batched else list(out_vars)
-    return SUM_PRODUCT.contract(operands, operand_vars, out), batched
+    return semiring.contract(operands, operand_vars, out), batched
 
 
-def _try_big_clique_route(plan, ops, ovs, out_vars, min_states):
+def _try_big_clique_route(plan, semiring, ops, ovs, out_vars, min_states):
     """Route a collect/distribute/marginal contraction through the factored
-    big-clique contraction when the clique has at least ``min_states``
-    states and every batched operand is either a single-variable mask
-    (evidence) or a child message whose scope doesn't cross the
-    output-separator boundary.  Returns (result, batched) or None."""
+    big-clique contraction when the semiring is sum-product, the clique has
+    at least ``min_states`` states and every batched operand is either a
+    single-variable mask (evidence) or a child message whose scope doesn't
+    cross the output-separator boundary.  Returns (result, batched) or
+    None."""
+    if semiring != SUM_PRODUCT:
+        return None
     batched: List[tuple] = []
     msgs: List[tuple] = []
     unbatched: List[tuple] = []
@@ -346,13 +422,13 @@ def _try_big_clique_route(plan, ops, ovs, out_vars, min_states):
         if not (all(x in out_set for x in vs)
                 or all(x not in out_set for x in vs)):
             return None
-    pot = (
-        unbatched[0][0]
-        if len(unbatched) == 1 and unbatched[0][1] == scope
-        else SUM_PRODUCT.contract(
+    pot = unbatched[0][0]
+    if not (len(unbatched) == 1 and unbatched[0][1] == scope):
+        # the clique potential times its unbatched messages, stored like the
+        # potential (under bfloat16 storage the kernel reads bfloat16)
+        pot = semiring.contract(
             [o for o, _ in unbatched], [v for _, v in unbatched], scope
-        )
-    )
+        ).to(pot.dtype)
     masks: Dict[int, torch.Tensor] = {}
     for o, x in batched:
         masks[x] = o if x not in masks else masks[x] * o
@@ -360,34 +436,107 @@ def _try_big_clique_route(plan, ops, ovs, out_vars, min_states):
     return out, True
 
 
-def routed_contract(plan, ops, ovs, outv, *, min_states):
+def routed_contract(plan, semiring, ops, ovs, outv, *, min_states):
     """One contraction through the routing ladder: the factored big-clique
-    contraction, else the planned batched einsum.  Returns (result,
-    batched)."""
-    routed = _try_big_clique_route(plan, ops, ovs, outv, min_states)
+    contraction, else the semiring's planned batched contraction.  Returns
+    (result, batched)."""
+    routed = _try_big_clique_route(plan, semiring, ops, ovs, outv, min_states)
     if routed is not None:
         return routed
-    return _bcontract(ops, ovs, outv)
+    return _bcontract(semiring, ops, ovs, outv)
+
+
+def divide_project(
+    semiring: Semiring,
+    belief: torch.Tensor,
+    belief_vars: Sequence[int],
+    msg: torch.Tensor,
+    msg_vars: Sequence[int],
+) -> torch.Tensor:
+    """Hugin division trick: ``reduce(belief / msg -> msg_vars)``.
+
+    ``belief`` is a clique belief over ``belief_vars`` (maybe batched),
+    ``msg`` the child's collect message over ``msg_vars``, a subset of
+    ``belief_vars`` (an unbatched msg divides a batched belief by
+    broadcast).  Returns the distribute message to that child over exactly
+    ``msg_vars``, batched iff the belief is.  The belief is reduced to the
+    separator first and divided there (the divisor is constant over the
+    reduced axes).  Where the divisor is the semiring zero the result is the
+    semiring zero: the child's belief is zero there too, so nothing
+    downstream sees the difference.  Only for semirings whose product has an
+    inverse (sum-product, log-sum-exp)."""
+    b_batched = bool(belief_vars) and belief_vars[0] == BATCH
+    m_batched = bool(msg_vars) and msg_vars[0] == BATCH
+    if m_batched and not b_batched:
+        raise ValueError("a batched message cannot divide an unbatched belief")
+    lead = 1 if b_batched else 0
+    bvars = list(belief_vars[lead:])
+    mvars = list(msg_vars[1:] if m_batched else msg_vars)
+    mset = set(mvars)
+    sep = semiring.reduce(
+        belief, [lead + i for i, v in enumerate(bvars) if v not in mset]
+    )
+    kept = [v for v in bvars if v in mset]
+    # the divisor in the reduced belief's axis order, leading 1 to broadcast
+    mlead = 1 if m_batched else 0
+    m = msg.permute(
+        list(range(mlead)) + [mlead + mvars.index(v) for v in kept]
+    )
+    if b_batched and not m_batched:
+        m = m[None]
+    # the quotient where the divisor is the semiring zero (inf or NaN) is
+    # replaced, never read
+    out = torch.where(
+        m == semiring.zero, semiring.zero, semiring.divide(sep, m)
+    )
+    return out.permute(
+        list(range(lead)) + [lead + kept.index(v) for v in mvars]
+    )
 
 
 _PROG_TINY = 1e-38
 
 
 class BatchedProgramBuilder:
-    """Step-structured builder for the rescaled, batch-aware sum-product
-    propagate program.
+    """Step-structured construction of the batch-aware propagate program.
 
     The program is a STATIC schedule of steps — one collect contraction per
     non-root clique, one distribute step per parent, one marginal per
     variable, one partition step — over a dict of named tensors.  Whether
     each intermediate carries the batch axis is decided statically (a
     contraction output is batched iff any operand is batched), and every
-    contraction checks it.  Every message is divided by its max and the
-    collect offsets accumulate into logZ.  ``full()`` returns the program as
-    a function."""
+    contraction checks it.  ``full()`` returns the program as a function.
 
-    def __init__(self, plan: Plan, observed: Optional[Sequence[int]] = None):
+    ``rescale=True`` (linear sum-product only): every message is divided by
+    its max and the collect offsets accumulate into logZ.  The program then
+    follows the potentials' dtype as its storage dtype: with bfloat16
+    potentials the rescaled messages are stored in bfloat16 too, while
+    contractions accumulate in float32, maxima and the floor are taken in
+    float32 before the store, and logZ and the marginals come out float32.
+    The masks stay as they are given (float32): they are [B, size_v], small
+    beside the messages, and every contraction would widen them again.
+
+    With ``config.DEFAULT.distribute_division`` set (read here, once) the
+    distribute pass of sum-product and log-sum-exp programs derives each
+    child's message from the parent's belief by one guarded divide at
+    separator size (:func:`divide_project`) instead of a leave-one-out
+    product, on cliques small enough that the belief is materialized anyway;
+    the marginal phase then reuses that belief."""
+
+    def __init__(
+        self,
+        plan: Plan,
+        semiring: Semiring = SUM_PRODUCT,
+        observed: Optional[Sequence[int]] = None,
+        rescale: bool = False,
+    ):
+        if rescale and semiring != SUM_PRODUCT:
+            raise ValueError(
+                "rescale=True requires the linear sum_product semiring"
+            )
         self.plan = plan
+        self.semiring = semiring
+        self.rescale = rescale
         tree = plan.tree
         if observed is None:
             observed = list(range(plan.num_vars))
@@ -398,6 +547,9 @@ class BatchedProgramBuilder:
             cmv[plan.var_to_clique[v]].append(v)
         self.clique_mask_vars = cmv
         self.min_states = _CFG.big_clique_min_states
+        self.divide_ok = _CFG.distribute_division and semiring in (
+            SUM_PRODUCT, LOG_SUM_EXP
+        )
         # cliques up to this size materialize their belief once in the
         # marginal phase; bigger ones contract per variable so
         # [B, clique_states] never materializes
@@ -413,6 +565,9 @@ class BatchedProgramBuilder:
     def _states(self, c: int) -> int:
         return _vars_states(self.plan.sizes, self.plan.clique_vars[c])
 
+    def _divide_path(self, p: int) -> bool:
+        return self.divide_ok and self._states(p) <= self.BELIEF_STATES_CAP
+
     def _flags(self) -> None:
         """Static batch-ness of every intermediate."""
         tree = self.plan.tree
@@ -425,11 +580,19 @@ class BatchedProgramBuilder:
         down_b: Dict[int, bool] = {}
         for p in tree.topo_order:
             kids = tree.children[p]
+            if not kids:
+                continue
             base = has_mask[p] or (p != tree.root and down_b[p])
-            for i, (k, _) in enumerate(kids):
-                down_b[k] = base or any(
-                    up_b[k2] for j, (k2, _) in enumerate(kids) if j != i
-                )
+            if self._divide_path(p):
+                # every child's message comes from the one belief
+                b = base or any(up_b[k] for k, _ in kids)
+                for k, _ in kids:
+                    down_b[k] = b
+            else:
+                for i, (k, _) in enumerate(kids):
+                    down_b[k] = base or any(
+                        up_b[k2] for j, (k2, _) in enumerate(kids) if j != i
+                    )
         node_b: Dict[int, bool] = {}
         for c in range(tree.num_cliques):
             node_b[c] = has_mask[c] or (
@@ -441,7 +604,8 @@ class BatchedProgramBuilder:
 
     def _contract(self, ops, ovs, outv):
         out, b = routed_contract(
-            self.plan, ops, ovs, outv, min_states=self.min_states
+            self.plan, self.semiring, ops, ovs, outv,
+            min_states=self.min_states,
         )
         expect_b = any(vs and vs[0] == BATCH for vs in ovs)
         if b != expect_b:
@@ -459,18 +623,23 @@ class BatchedProgramBuilder:
             ovs.append([BATCH, v])
         return ops, ovs
 
-    def _rescale_msg(self, st, m, batched, track):
+    def _rescale_msg(self, st, m, batched, track, storage):
         """Divide a message by its max (per batch row when batched); the
-        collect pass accumulates log(max) into the logZ offset."""
+        collect pass accumulates log(max) into the logZ offset.  The max,
+        the floor and the division are in the contraction's dtype (float32
+        under low-precision storage, where 1e-38 would not survive a store);
+        only the rescaled message is stored in ``storage``."""
         if batched:
             s = m.reshape(m.shape[0], -1).amax(dim=1).clamp_min(_PROG_TINY)
             if track:
                 st[("logoff",)] = st[("logoff",)] + torch.log(s)
-            return m / s.reshape((-1,) + (1,) * (m.dim() - 1))
-        s = m.max().clamp_min(_PROG_TINY)
-        if track:
-            st[("logoff",)] = st[("logoff",)] + torch.log(s)
-        return m / s
+            m = m / s.reshape((-1,) + (1,) * (m.dim() - 1))
+        else:
+            s = m.max().clamp_min(_PROG_TINY)
+            if track:
+                st[("logoff",)] = st[("logoff",)] + torch.log(s)
+            m = m / s
+        return m.to(storage)
 
     def _upv(self, c):
         tree = self.plan.tree
@@ -495,7 +664,7 @@ class BatchedProgramBuilder:
             ovs.append(self._upv(k))
         return ops, ovs
 
-    def _run_step(self, s, st, pots, masks, B):
+    def _run_step(self, s, st, pots, masks, B, storage):
         plan, tree = self.plan, self.plan.tree
         svars = plan.sep_vars
         kind, c = s
@@ -505,7 +674,9 @@ class BatchedProgramBuilder:
                 ops.append(st[("up", k)])
                 ovs.append(self._upv(k))
             out, b = self._contract(ops, ovs, svars[tree.parent_sep[c]])
-            st[("up", c)] = self._rescale_msg(st, out, b, True)
+            if self.rescale:
+                out = self._rescale_msg(st, out, b, True, storage)
+            st[("up", c)] = out
         elif kind == "down":
             p = c
             kids = tree.children[p]
@@ -513,6 +684,22 @@ class BatchedProgramBuilder:
             if p != tree.root:
                 pops.append(st[("down", p)])
                 povs.append(self._downv(p))
+            if self._divide_path(p):
+                ops, ovs = list(pops), list(povs)
+                for k2, _ in kids:
+                    ops.append(st[("up", k2)])
+                    ovs.append(self._upv(k2))
+                bel, bb = self._contract(ops, ovs, list(plan.clique_vars[p]))
+                st[("bel", p)] = bel
+                belv = ([BATCH] if bb else []) + list(plan.clique_vars[p])
+                for k, _ in kids:
+                    out = divide_project(
+                        self.semiring, bel, belv, st[("up", k)], self._upv(k)
+                    )
+                    if self.rescale:
+                        out = self._rescale_msg(st, out, bb, False, storage)
+                    st[("down", k)] = out
+                return
             for i, (k, sep) in enumerate(kids):
                 ops, ovs = list(pops), list(povs)
                 for j, (k2, _) in enumerate(kids):
@@ -520,7 +707,9 @@ class BatchedProgramBuilder:
                         ops.append(st[("up", k2)])
                         ovs.append(self._upv(k2))
                 out, b = self._contract(ops, ovs, svars[sep])
-                st[("down", k)] = self._rescale_msg(st, out, b, False)
+                if self.rescale:
+                    out = self._rescale_msg(st, out, b, False, storage)
+                st[("down", k)] = out
         elif kind == "marg":
             v = c
             cq = plan.var_to_clique[v]
@@ -552,27 +741,35 @@ class BatchedProgramBuilder:
                 z, b = self._contract(rops, rovs, [])
             if not b:
                 z = z.reshape(()).expand(B)
-            # logZ = log(z_scaled) + accumulated collect offsets
-            # (impossible evidence: z_scaled == 0 -> logZ = -inf)
-            z = torch.where(
-                z > 0, torch.log(z.clamp_min(_PROG_TINY)),
-                torch.full_like(z, -float("inf")),
-            )
-            st[("z",)] = z + st[("logoff",)].expand(z.shape)
+            if self.rescale:
+                # logZ = log(z_scaled) + accumulated collect offsets
+                # (impossible evidence: z_scaled == 0 -> logZ = -inf)
+                z = torch.where(
+                    z > 0, torch.log(z.clamp_min(_PROG_TINY)),
+                    torch.full_like(z, -float("inf")),
+                )
+                z = z + st[("logoff",)].expand(z.shape)
+            st[("z",)] = z
         else:  # pragma: no cover
             raise AssertionError(kind)
 
     def full(self):
-        """``fn(pots, masks) -> (marginals list, logZ [B])``; the marginals
-        are unnormalized but bounded."""
+        """``fn(pots, masks) -> (marginals list, z [B])``: marginals and z
+        in semiring space; with ``rescale`` the marginals are unnormalized
+        but bounded and z is logZ."""
 
         def fn(pots: Sequence[torch.Tensor], masks: Sequence[torch.Tensor]):
             st: Dict[tuple, torch.Tensor] = {}
             B = masks[0].shape[0] if masks else 1
-            ref = pots[0]
-            st[("logoff",)] = torch.zeros((), dtype=ref.dtype, device=ref.device)
+            storage = pots[0].dtype
+            if self.rescale:
+                st[("logoff",)] = torch.zeros(
+                    (),
+                    dtype=torch.float32 if storage in _LOW_PRECISION else storage,
+                    device=pots[0].device,
+                )
             for s in self.steps:
-                self._run_step(s, st, pots, masks, B)
+                self._run_step(s, st, pots, masks, B, storage)
             margs = [st[("marg", v)] for v in range(self.plan.num_vars)]
             return margs, st[("z",)]
 
@@ -580,15 +777,24 @@ class BatchedProgramBuilder:
 
 
 def batched_propagate_program(
-    plan: Plan, observed: Optional[Sequence[int]] = None
+    plan: Plan,
+    semiring: Semiring = SUM_PRODUCT,
+    observed: Optional[Sequence[int]] = None,
+    rescale: bool = False,
 ):
-    """Build ``fn(pots, masks) -> (var_marginals [B,size_v] list, logZ [B])``.
+    """Build ``fn(pots, masks) -> (var_marginals [B,size_v] list, Z [B])``.
 
-    ``pots`` are unbatched clique potentials; ``masks`` is a list aligned
-    with ``observed`` (var ids), each [B, size_v].  Only observed variables
-    carry masks.  Every message is divided by its max and the collect
-    offsets accumulate into logZ; the marginals are unnormalized."""
-    return BatchedProgramBuilder(plan, observed).full()
+    ``pots`` are unbatched clique potentials (semiring space); ``masks`` is
+    a list aligned with ``observed`` (var ids), each [B, size_v] in semiring
+    space.  Only observed variables carry masks — unobserved ones are
+    implicitly all-ones, which keeps evidence-free parts of the tree
+    unbatched.  ``observed=None`` means every variable is masked.
+
+    ``rescale=True`` (linear sum-product only): every message is divided by
+    its max and the collect offsets accumulate, so the returned Z is
+    ``logZ`` [B] and the marginals are unnormalized but bounded — normalize
+    per variable (this is what ``Engine.posterior_batch`` does)."""
+    return BatchedProgramBuilder(plan, semiring, observed, rescale=rescale).full()
 
 
 def resolve_device(device) -> torch.device:
@@ -605,14 +811,41 @@ def resolve_device(device) -> torch.device:
     return torch.device("cuda", 0)
 
 
+def _normalize(semiring: Semiring, margs: Sequence[torch.Tensor]):
+    """Per-variable posteriors (linear space) from semiring-space
+    marginals.  A row of impossible evidence (all semiring zeros) comes out
+    as zeros: in log space its normalizer is -inf and is replaced by 0."""
+    if semiring == SUM_PRODUCT:
+        return [
+            m / m.sum(dim=-1, keepdim=True).clamp_min(_PROG_TINY) for m in margs
+        ]
+    out = []
+    for m in margs:
+        if semiring == MAX_PRODUCT:
+            norm = m.amax(dim=-1, keepdim=True)
+        else:
+            norm = torch.logsumexp(m, dim=-1, keepdim=True)
+        norm = torch.where(torch.isneginf(norm), torch.zeros_like(norm), norm)
+        out.append(torch.exp(m - norm))
+    return out
+
+
 class Engine:
     """Inference engine for one compiled Plan on one torch device.
 
-    ``set_potentials`` precomputes clique potentials once; ``query`` and
-    ``posterior_batch`` then serve evidence against them.  ``device`` and
-    ``dtype`` place the potentials, masks and messages (default: CUDA
-    device 0 and ``config.DEFAULT.storage_dtype``; pass ``device="cpu"`` to
-    run on the CPU)."""
+    ``set_potentials`` precomputes clique potentials once; ``query``,
+    ``query_batch`` and ``posterior_batch`` then serve evidence against
+    them.  ``semiring`` is ``SUM_PRODUCT``, ``LOG_SUM_EXP`` or
+    ``MAX_PRODUCT``.  ``device`` places the potentials, masks and messages
+    (default CUDA device 0; pass ``device="cpu"`` to run on the CPU).
+
+    ``dtype`` (default ``config.DEFAULT.storage_dtype``) is
+    ``torch.float32``, ``torch.float64`` or ``torch.bfloat16``.  bfloat16 is
+    a storage dtype for the rescaled sum-product serving program only: its
+    potentials and messages sit in bfloat16 while contractions accumulate
+    in float32 and posteriors and logZ come out float32;
+    ``propagate``, ``query``, ``query_batch``, the chain and level-fused
+    programs, and engines on a log semiring compute in float32."""
 
     def __init__(
         self,
@@ -622,49 +855,77 @@ class Engine:
         device=None,
         dtype: Optional[torch.dtype] = None,
     ):
-        if semiring is not SUM_PRODUCT:
-            raise NotImplementedError(
-                f"semiring {semiring.name!r} is not ported yet (ROADMAP.md)"
-            )
+        if semiring not in SEMIRINGS.values():
+            raise ValueError(f"unknown semiring {semiring!r}")
         if dtype is None:
             dtype = getattr(torch, _CFG.storage_dtype)
-        if dtype not in (torch.float32, torch.float64):
-            raise NotImplementedError(
-                f"dtype {dtype} is not supported yet: use torch.float32 or "
-                "torch.float64 (bf16 storage is ROADMAP.md Queue 1 item 5)"
+        if dtype not in (torch.float32, torch.float64, torch.bfloat16):
+            raise ValueError(
+                f"dtype {dtype} is not supported: use torch.float32, "
+                "torch.float64 or torch.bfloat16"
             )
         self.plan = plan
         self.semiring = semiring
         self.device = resolve_device(device)
         self.dtype = dtype
+        # what the parity paths compute in, and every path returns
+        self.compute_dtype = (
+            torch.float32 if dtype is torch.bfloat16 else dtype
+        )
         self._pots: Optional[List[torch.Tensor]] = None
-        self._programs: Dict[tuple, BatchedProgramBuilder] = {}
+        self._pots_np: Optional[List[np.ndarray]] = None
+        self._pots_prog: Optional[List[torch.Tensor]] = None
+        self._programs: Dict[tuple, object] = {}
+        self._chain: Optional[tuple] = None   # lazy ChainLayout cache
+        self._chain_A: Optional[torch.Tensor] = None   # stacked transitions
+        self._fused_sched = None              # lazy fused schedule
+        self._fused_stack = None              # stacked fused group potentials
 
     def _place(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=self.dtype, device=self.device)
+        return torch.as_tensor(x, dtype=self.compute_dtype, device=self.device)
+
+    def storage_dtype(self) -> torch.dtype:
+        """Dtype of the general serving program's potentials and messages:
+        bfloat16 only for a sum-product engine asked for it
+        (logsumexp in bfloat16 loses the tail), else the compute dtype."""
+        if self.dtype is torch.bfloat16 and self.semiring == SUM_PRODUCT:
+            return torch.bfloat16
+        return self.compute_dtype
+
+    def _chain_layout(self):
+        if self._chain is None:
+            from .scan_executor import ChainLayout
+
+            self._chain = (ChainLayout.detect(self.plan),)
+        return self._chain[0]
 
     # -- reference-parity path: values in, unnormalized factor marginals out --
     def propagate(self, values: Sequence[np.ndarray]) -> List[np.ndarray]:
-        pots = evaluate_cliques_np(
-            self.plan, [np.asarray(v, dtype=np.float64) for v in values]
-        )
-        beliefs, _ = propagate_cliques(
-            self.plan, [self._place(p) for p in pots]
-        )
-        return [x.cpu().numpy() for x in factor_marginals(self.plan, beliefs)]
+        sr = self.semiring
+        vals = [sr.from_linear(self._place(v)) for v in values]
+        pots = evaluate_cliques(self.plan, vals, sr)
+        beliefs, _ = propagate_cliques(self.plan, pots, sr)
+        return [
+            sr.to_linear(x).cpu().numpy()
+            for x in factor_marginals(self.plan, beliefs, sr)
+        ]
 
     # -- serving: precompute potentials once, then mask-only queries --
     def set_potentials(self, values: Sequence[np.ndarray]) -> "Engine":
         from .utils.timing import TIMERS
 
         vals = [np.asarray(v, dtype=np.float64) for v in values]
+        if self.semiring.is_log:
+            with np.errstate(divide="ignore"):
+                vals = [np.log(v) for v in vals]
         with TIMERS.phase("engine.evaluate"):
-            pots = evaluate_cliques_np(self.plan, vals)
+            pots = evaluate_cliques_np(self.plan, vals, self.semiring)
         return self.set_clique_potentials(pots)
 
     def set_clique_potentials(self, pots: Sequence[np.ndarray]) -> "Engine":
         """Install evaluated clique potentials (one array per clique, in
-        ``plan.clique_vars`` axis order) without re-evaluating factors."""
+        ``plan.clique_vars`` axis order, in the semiring's space) without
+        re-evaluating factors."""
         if len(pots) != self.plan.tri.num_cliques:
             raise ValueError(
                 "expected %d clique potentials, got %d"
@@ -676,13 +937,29 @@ class Engine:
                     "clique %d potential has shape %r, expected %r"
                     % (c, tuple(np.shape(p)), self.plan.clique_shape(c))
                 )
-        self._pots = [self._place(p) for p in pots]
+        self._pots_np = [np.asarray(p) for p in pots]
+        self._pots = [self._place(p) for p in self._pots_np]
+        # everything derived from the potentials is rebuilt at next use
+        self._pots_prog = None
+        self._chain_A = None
+        self._fused_stack = None
         return self
 
     def _require_pots(self) -> List[torch.Tensor]:
         if self._pots is None:
             raise RuntimeError("call set_potentials(values) before querying")
         return self._pots
+
+    def _program_pots(self) -> List[torch.Tensor]:
+        """Potentials as the general serving program reads them: cast to
+        the storage dtype once per ``set_potentials``."""
+        pots = self._require_pots()
+        storage = self.storage_dtype()
+        if storage == self.compute_dtype:
+            return pots
+        if self._pots_prog is None:
+            self._pots_prog = [p.to(storage) for p in pots]
+        return self._pots_prog
 
     def __repr__(self) -> str:
         st = self.plan.stats()
@@ -701,11 +978,25 @@ class Engine:
         """Posterior per-variable marginals under evidence + normalization
         constant P(evidence) (unnormalized marginals if normalize=False)."""
         pots = self._require_pots()
-        masks = evidence_to_masks(self.plan, evidence or {})
-        mpots = apply_masks(self.plan, pots, [self._place(m) for m in masks])
-        beliefs, _ = propagate_cliques(self.plan, mpots)
-        margs = [m.cpu().numpy() for m in var_marginals(self.plan, beliefs)]
-        zlin = float(partition(self.plan, beliefs))
+        sr = self.semiring
+        masks = evidence_to_masks(self.plan, evidence or {}, sr)
+        mpots = apply_masks(self.plan, pots, [self._place(m) for m in masks], sr)
+        beliefs, _ = propagate_cliques(self.plan, mpots, sr)
+        margs = var_marginals(self.plan, beliefs, sr)
+        zlin = float(sr.to_linear(partition(self.plan, beliefs, sr)))
+        if normalize and sr.is_log:
+            # normalize in log space (stable even when linear Z overflows)
+            out = []
+            for m in margs:
+                m = m.double().cpu().numpy()
+                mx = m.max()
+                if not np.isfinite(mx):
+                    out.append(np.exp(m))
+                    continue
+                e = np.exp(m - mx)
+                out.append(e / e.sum())
+            return out, zlin
+        margs = [sr.to_linear(m).cpu().numpy() for m in margs]
         if normalize:
             margs = [m / m.sum() if m.sum() != 0 else m for m in margs]
         return margs, zlin
@@ -736,37 +1027,167 @@ class Engine:
                 )
         return tuple(ids), masks
 
-    def posterior_batch(self, mask_batch, mode: str = "auto"):
+    def _general_program(self, ids: tuple, rescale: bool):
+        key = ("general", rescale, ids, _CFG.distribute_division)
+        fn = self._programs.get(key)
+        if fn is None:
+            fn = batched_propagate_program(
+                self.plan, self.semiring, list(ids), rescale=rescale
+            )
+            self._programs[key] = fn
+        return fn
+
+    def query_batch(self, mask_batch):
+        """Batched evidence queries on the parity path: returns
+        (unnormalized var marginals [B, size_v] over ALL var ids, Z [B]),
+        both in the semiring's space and the compute dtype.
+
+        ``mask_batch`` is a dict {var label: [B, size_v] masks} for the
+        observed variables (evidence-free parts of the tree then run
+        unbatched), or a full per-var-id list of [B, size_v] arrays; masks
+        are in the semiring's space.  Runs the batch-aware program without
+        rescaling, on unbatched potentials."""
+        pots = self._require_pots()
+        ids, masks = self._masks_to_program_args(mask_batch)
+        return self._general_program(ids, False)(pots, masks)
+
+    def _fused_schedule(self):
+        if self._fused_sched is None:
+            from .fused import build_fused_schedule
+
+            self._fused_sched = build_fused_schedule(self.plan)
+        return self._fused_sched
+
+    def _route(self, mode: str) -> str:
+        """Which serving program ``posterior_batch`` runs: "chain", "fused"
+        or "general".  Auto mode on a sum-product engine takes the chain
+        program on a uniform chain, and the level-fused program on a model
+        of at least 32 cliques, none above 2^13 states, whose level grouping
+        at least halves the number of per-clique steps."""
+        if mode == "fused":
+            return "fused"
+        if mode == "general" or self.semiring != SUM_PRODUCT:
+            return "general"
+        if self._chain_layout() is not None:
+            return "chain"
+        st = self.plan.stats()
+        if st["num_cliques"] >= 32 and st["max_clique_states"] <= (1 << 13):
+            sched = self._fused_schedule()[0]
+            n_groups = sum(len(gs) for gs in sched.levels)
+            if n_groups * 2 <= st["num_cliques"]:
+                return "fused"
+        return "general"
+
+    def _posterior_general(self, ids, masks):
+        sr = self.semiring
+        prog = self._general_program(ids, sr == SUM_PRODUCT)
+        margs, logz = prog(self._program_pots(), masks)
+        return _normalize(sr, margs), logz
+
+    def _posterior_chain(self, ids, masks):
+        from .scan_executor import (
+            StackedPosteriors,
+            chain_posterior_program,
+            stack_chain_potentials,
+        )
+
+        layout = self._chain_layout()
+        prog = self._programs.get(("chain",))
+        if prog is None:
+            prog = chain_posterior_program(self.plan, layout)
+            self._programs[("chain",)] = prog
+        if self._chain_A is None:
+            self._chain_A = self._place(
+                stack_chain_potentials(layout, self._pots_np)
+            )
+        stacked, logz = prog(self._chain_A, dict(zip(ids, masks)))
+        return StackedPosteriors(stacked, layout.var_order), logz
+
+    def _posterior_fused(self, ids, masks):
+        from .fused import (
+            FusedPosteriors,
+            fused_posterior_program,
+            stack_group_potentials,
+        )
+
+        if self.semiring != SUM_PRODUCT:
+            raise ValueError("fused path requires the sum_product semiring")
+        sched, sorted_children = self._fused_schedule()
+        if self._fused_stack is None:
+            self._fused_stack = [
+                [self._place(p) for p in level]
+                for level in stack_group_potentials(sched, self._pots_np)
+            ]
+        prog = self._programs.get(("fused", ids))
+        if prog is None:
+            prog = fused_posterior_program(
+                sched, sorted_children, list(ids), device=self.device
+            )
+            self._programs[("fused", ids)] = prog
+        marg, logz = prog(self._fused_stack, masks)
+        return FusedPosteriors(sched, marg), logz
+
+    def posterior_batch_fused(self, mask_batch):
+        """Level-fused serving path (see ``fused.py``): same contract as
+        ``posterior_batch``, in O(levels x groups) device operations instead
+        of O(cliques).  Linear sum-product only."""
+        return self.posterior_batch(mask_batch, mode="fused")
+
+    def posterior_batch(
+        self, mask_batch, mode: str = "auto", chunk: Optional[int] = None
+    ):
         """Serving path: normalized per-variable posteriors + log-partition.
 
         ``mask_batch`` is a dict {var label: [B, size_v] mask} for the
         observed variables (evidence-free parts of the tree then run
         unbatched), or a list of [B, size_v] masks for every variable id;
-        numpy arrays or tensors.  Runs the rescaled batch-aware program:
-        every message is divided by its max and the collect offsets
-        accumulate into logZ, so the result is stable where plain linear
-        space would over- or underflow.
+        numpy arrays or tensors, in the semiring's space.
 
-        ``mode``: "auto" and "general" both run that program; the chain and
-        level-fused programs of the JAX package are not ported yet, and
-        "fused" raises ``NotImplementedError``.
+        A sum-product engine runs rescaled message passing: every message is
+        divided by its max and the collect offsets accumulate into logZ, so
+        the result is stable where plain linear space would over- or
+        underflow.  Log-space engines run unrescaled and normalize with
+        logsumexp (max-product: by the max).
 
-        Returns (posteriors: list over var ids of [B, size_v] tensors, logZ:
-        [B] tensor) on the engine's device.  Impossible evidence gives zero
-        posteriors and logZ = -inf."""
-        if mode == "fused":
-            raise NotImplementedError(
-                "the level-fused serving program is not ported yet "
-                "(ROADMAP.md Queue 1 item 7); use mode='general'"
-            )
-        if mode not in ("auto", "general"):
+        ``mode``: "auto" takes the chain program on a uniform chain, the
+        level-fused program on regular models of many small cliques, else
+        the general batch-aware program (see ``_route``); "general" and
+        "fused" force a program.
+
+        ``chunk``: serve a batch of more than ``chunk`` rows in row slices
+        of that many, through the general program, writing into
+        preallocated [B, size_v] outputs, so that the step's peak memory is
+        that of ``chunk`` rows.  Rows are independent, so the result is that
+        of the unchunked call; the last slice is simply shorter.  With
+        ``B <= chunk`` the call is the unchunked one in the caller's
+        ``mode``.
+
+        Returns (posteriors: indexable by var id, each [B, size_v]; logZ:
+        [B]) on the engine's device in its compute dtype.  Impossible
+        evidence gives zero posteriors and logZ = -inf."""
+        if mode not in ("auto", "general", "fused"):
             raise ValueError(f"unknown mode {mode!r}")
-        pots = self._require_pots()
+        if chunk is not None:
+            chunk = int(chunk)
+            if chunk < 1:
+                raise ValueError("chunk must be >= 1")
+        self._require_pots()
         ids, masks = self._masks_to_program_args(mask_batch)
-        builder = self._programs.get(ids)
-        if builder is None:
-            builder = BatchedProgramBuilder(self.plan, list(ids))
-            self._programs[ids] = builder
-        margs, logz = builder.full()(pots, masks)
-        post = [m / m.sum(dim=-1, keepdim=True).clamp_min(_PROG_TINY) for m in margs]
-        return post, logz
+        B = int(masks[0].shape[0]) if masks else 1
+        if chunk is None or B <= chunk:
+            run = getattr(self, "_posterior_" + self._route(mode))
+            return run(ids, masks)
+        posts = [
+            torch.empty((B, s), dtype=self.compute_dtype, device=self.device)
+            for s in self.plan.sizes
+        ]
+        logz = torch.empty((B,), dtype=self.compute_dtype, device=self.device)
+        for lo in range(0, B, chunk):
+            rows = slice(lo, min(lo + chunk, B))
+            post_c, logz_c = self._posterior_general(
+                ids, [m[rows] for m in masks]
+            )
+            for out, p in zip(posts, post_c):
+                out[rows] = p
+            logz[rows] = logz_c
+        return posts, logz

@@ -116,7 +116,8 @@ def factored_masked_contract(
     of a contiguous [R2, R1, C] tensor, as :func:`big_clique_sep_message`
     passes it, is used as it is, and any other is copied once.  CPU tensors
     take :func:`reference_factored_contract`.  Each kernel launch adds one
-    to ``factored_masked_contract.launches``."""
+    to ``factored_masked_contract.launches``, and one with bf16 inputs also
+    to ``factored_masked_contract.launches_bf16``."""
     if not pot.is_cuda:
         return reference_factored_contract(pot, w1, w2)
     if pot.dim() != 3 or w1.dim() != 2 or w2.dim() != 2:
@@ -174,10 +175,12 @@ def factored_masked_contract(
             + lib.jt_error_string(rc).decode()
         )
     factored_masked_contract.launches += 1
+    factored_masked_contract.launches_bf16 += int(bf16)
     return out
 
 
 factored_masked_contract.launches = 0
+factored_masked_contract.launches_bf16 = 0
 
 
 def build_weight_groups(
@@ -360,6 +363,10 @@ def big_clique_sep_message(
         R2 = int(np.prod([sizes[v] for v in g2_axes])) or 1
         w1 = _contract_items(g1_items, g1_vars, B, sizes) if g1_items else ones(1)
         w2 = _contract_items(g2_items, g2_vars, B, sizes) if g2_items else ones(1)
+        if pot.dtype == torch.bfloat16:
+            # bfloat16 storage: the kernel reads pot and w2 in bfloat16 (w1
+            # in float32), so round w2 before it is expanded, not after
+            w2 = w2.to(torch.bfloat16)
         # w2 broadcast over uncovered rest axes
         n_un = int(np.prod([sizes[v] for v in un_vars])) or 1
         if n_un > 1:

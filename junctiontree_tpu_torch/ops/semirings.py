@@ -1,10 +1,15 @@
 """Semirings for message passing (counterpart of
 ``junctiontree_tpu/ops/semirings.py``).
 
-Only the linear sum-product semiring is ported so far; log-sum-exp and
-max-product follow (ROADMAP.md, Queue 1).  ``Semiring.contract`` is the
-generalized einsum "product of operands, reduced to out_vars" over
-int-labelled axes.
+  * ``SUM_PRODUCT``  linear-space sum-product: contractions are einsums.
+  * ``LOG_SUM_EXP``  log-space sum-product: multiply = add, marginalize =
+                     logsumexp.  Safe where unnormalized linear beliefs would
+                     over- or underflow.
+  * ``MAX_PRODUCT``  log-space max-product (MAP): multiply = add,
+                     marginalize = max.
+
+``Semiring.contract`` is the generalized einsum "product of operands,
+reduced to out_vars" over int-labelled axes.
 
 Contraction order.  The JAX package hands multi-operand einsums to
 opt_einsum's path search.  PyTorch contracts left to right unless opt_einsum
@@ -24,6 +29,14 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 _LETTERS = "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ"
+
+# log_sum_exp contractions whose union scope has at least this many states
+# go through the max-shifted linear einsum (log-matmul-exp) instead of
+# broadcast + logsumexp-reduce (see Semiring.contract); read at call time
+LOG_EINSUM_MIN_STATES = 1 << 16
+
+_TINY = 1e-38
+_LOW_PRECISION = (torch.bfloat16, torch.float16)
 
 
 def make_subscripts(
@@ -121,11 +134,10 @@ def _einsum_sum_product(
     out_vars: Sequence[int],
 ) -> torch.Tensor:
     ops = list(operands)
+    if any(x.dtype in _LOW_PRECISION for x in ops):
+        ops = [x.float() for x in ops]
     ovs = [list(vs) for vs in operand_vars]
-    extent: Dict[int, int] = {}
-    for x, vs in zip(ops, ovs):
-        for d, v in zip(x.shape, vs):
-            extent[v] = int(d)
+    extent = _extents(ops, ovs)
     for i, j, res in plan_contraction(ovs, out_vars, extent):
         y = torch.einsum(make_subscripts([ovs[i], ovs[j]], res), ops[i], ops[j])
         del ops[j], ops[i], ovs[j], ovs[i]
@@ -137,11 +149,54 @@ def _einsum_sum_product(
     return torch.einsum(make_subscripts([vs], out_vars), x)
 
 
+def _extents(operands, operand_vars) -> Dict[int, int]:
+    extent: Dict[int, int] = {}
+    for x, vs in zip(operands, operand_vars):
+        for d, v in zip(x.shape, vs):
+            extent[v] = int(d)
+    return extent
+
+
+def _log_matmul_exp(operands, operand_vars, out_vars) -> torch.Tensor:
+    """log-sum-exp contraction as a max-shifted linear einsum: each operand
+    is shifted by its global max, exponentiated, and the planned pairwise
+    einsum contracts the linear operands, so the union scope is never built.
+    Entries more than ~87 nats below an operand's max underflow to the
+    semiring zero."""
+    lin, tot = [], None
+    for x in operands:
+        m = x.detach().max()
+        # an all -inf operand has no finite max: shift by 0
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        lin.append(torch.exp(x - m))
+        tot = m if tot is None else tot + m
+    y = _einsum_sum_product(lin, operand_vars, out_vars)
+    return torch.where(
+        y > 0, torch.log(y.clamp_min(_TINY)), torch.full_like(y, -float("inf"))
+    ) + tot
+
+
 @dataclass(frozen=True)
 class Semiring:
     name: str
     is_log: bool
     one: float  # multiplicative identity in this space
+
+    @property
+    def zero(self) -> float:
+        """Additive identity in this space."""
+        return -float("inf") if self.is_log else 0.0
+
+    def reduce(self, x: torch.Tensor, dims: Sequence[int]) -> torch.Tensor:
+        """Marginalize the axes ``dims`` (semiring addition)."""
+        dims = tuple(dims)
+        if not dims:
+            return x
+        if self.name == "sum_product":
+            return x.sum(dim=dims)
+        if self.name == "log_sum_exp":
+            return torch.logsumexp(x, dim=dims)
+        return x.amax(dim=dims)
 
     def contract(
         self,
@@ -153,13 +208,49 @@ class Semiring:
 
         Every out_var must appear in some operand (callers broadcast clique
         scopes explicitly — see executor), so no output-only axes arise here.
-        """
-        return _einsum_sum_product(operands, operand_vars, out_vars)
+
+        Sum-product is the planned pairwise einsum.  With a bfloat16 or
+        float16 operand every operand is widened to float32 first, so each
+        pair accumulates and is handed on in float32 and the result is
+        float32 (a bf16 ``torch.einsum`` would round between pairs).
+
+        The log semirings broadcast to the union scope, combine and reduce;
+        ``log_sum_exp`` with several operands and a union scope of at least
+        ``LOG_EINSUM_MIN_STATES`` states takes :func:`_log_matmul_exp`."""
+        if not self.is_log:
+            return _einsum_sum_product(operands, operand_vars, out_vars)
+        scope = _union_scope(operand_vars, out_vars)
+        if self.name == "log_sum_exp" and len(operands) > 1:
+            extent = _extents(operands, operand_vars)
+            if _states([v for v in scope if v in extent], extent) \
+                    >= LOG_EINSUM_MIN_STATES:
+                return _log_matmul_exp(operands, operand_vars, out_vars)
+        acc = _broadcast_to_scope(operands[0], operand_vars[0], scope)
+        for x, vs in zip(operands[1:], operand_vars[1:]):
+            acc = acc + _broadcast_to_scope(x, vs, scope)
+        out_set = set(out_vars)
+        acc = self.reduce(
+            acc, [i for i, v in enumerate(scope) if v not in out_set]
+        )
+        rem = [v for v in scope if v in out_set]
+        return acc.permute([rem.index(v) for v in out_vars])
 
     def combine(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        return a * b
+        return a + b if self.is_log else a * b
+
+    def divide(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """Inverse of combine where defined (used only by normalization)."""
+        return a - b if self.is_log else a / b
+
+    def to_linear(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.exp(x) if self.is_log else x
+
+    def from_linear(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.log(x) if self.is_log else x
 
 
 SUM_PRODUCT = Semiring(name="sum_product", is_log=False, one=1.0)
+LOG_SUM_EXP = Semiring(name="log_sum_exp", is_log=True, one=0.0)
+MAX_PRODUCT = Semiring(name="max_product", is_log=True, one=0.0)
 
-SEMIRINGS = {s.name: s for s in (SUM_PRODUCT,)}
+SEMIRINGS = {s.name: s for s in (SUM_PRODUCT, LOG_SUM_EXP, MAX_PRODUCT)}

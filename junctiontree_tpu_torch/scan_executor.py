@@ -1,0 +1,205 @@
+"""Chain executor: forward-backward serving for chain-structured trees
+(counterpart of ``junctiontree_tpu/scan_executor.py``).
+
+A chain junction tree with uniform cardinality K is exactly a batched HMM:
+collect = forward pass of masked matrix products, distribute = backward
+pass, with per-step rescaling so everything stays in linear space
+(``[B, K] x [K, K]`` products).
+
+  F_0 = 1;  F_{k+1}[b,q] = sum_p F_k[b,p] * M_k[b,p] * pot_k[p,q]
+  G_m = 1;  G_k[b,p]     = sum_q pot_k[p,q] * M_{k+1}[b,q] * G_{k+1}[b,q]
+  posterior(v_k) ∝ F_k ⊙ M_k ⊙ G_k;   logZ = log Σ_p F_m M_m + offsets
+
+PyTorch runs eagerly, so the two passes are Python loops over preallocated
+``[m+1, B, K]`` stacks, a handful of small device operations per step.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .schedule import Plan
+
+_TINY = 1e-38
+
+
+@dataclass(frozen=True)
+class ChainLayout:
+    """A junction tree recognized as a uniform chain.
+
+    var_order: v_0..v_m (chain order, interned ids)
+    clique_order: c_0..c_{m-1}; clique k covers (v_k, v_{k+1})
+    transpose: per clique, True if its potential (axes in sorted-var order)
+               must be transposed to get (v_k, v_{k+1}) layout
+    card: the common cardinality K
+    """
+
+    var_order: List[int]
+    clique_order: List[int]
+    transpose: List[bool]
+    card: int
+
+    @staticmethod
+    def detect(plan: Plan) -> Optional["ChainLayout"]:
+        tree = plan.tree
+        n = tree.num_cliques
+        if n < 2:
+            return None
+        # every clique exactly 2 vars, every separator exactly 1 var
+        if any(len(c) != 2 for c in plan.clique_vars):
+            return None
+        if any(len(s) != 1 for s in tree.separators):
+            return None
+        # path topology: degree <= 2, exactly two endpoints
+        deg = [0] * n
+        adj: List[List[int]] = [[] for _ in range(n)]
+        for a, b, _ in tree.edges:
+            deg[a] += 1
+            deg[b] += 1
+            adj[a].append(b)
+            adj[b].append(a)
+        ends = [i for i in range(n) if deg[i] == 1]
+        if len(ends) != 2 or any(d > 2 for d in deg):
+            return None
+        # uniform cardinality
+        cards = {plan.sizes[v] for c in plan.clique_vars for v in c}
+        if len(cards) != 1:
+            return None
+        card = cards.pop()
+        # walk the path
+        order = [ends[0]]
+        prev = -1
+        while len(order) < n:
+            cur = order[-1]
+            nxt = [x for x in adj[cur] if x != prev]
+            if len(nxt) != 1:
+                return None
+            prev = cur
+            order.append(nxt[0])
+        # recover the var chain: v_0 is the var of c_0 not shared with c_1
+        var_order: List[int] = []
+        transpose: List[bool] = []
+        first = set(plan.clique_vars[order[0]])
+        shared01 = first & set(plan.clique_vars[order[1]])
+        if len(shared01) != 1:
+            return None
+        v0 = (first - shared01).pop()
+        var_order.append(v0)
+        cur_var = v0
+        for c in order:
+            cv = plan.clique_vars[c]
+            if cur_var not in cv:
+                return None
+            nxt_var = cv[1] if cv[0] == cur_var else cv[0]
+            transpose.append(cv[0] != cur_var)
+            var_order.append(nxt_var)
+            cur_var = nxt_var
+        # chain must cover every variable exactly once
+        if sorted(var_order) != list(range(plan.num_vars)):
+            return None
+        return ChainLayout(var_order, order, transpose, card)
+
+
+def stack_chain_potentials(
+    layout: ChainLayout, pots_np: Sequence[np.ndarray]
+) -> np.ndarray:
+    """Host-side prestack of clique potentials into the [m, K, K] transition
+    tensor (done once per ``set_potentials``)."""
+    return np.stack(
+        [
+            np.transpose(pots_np[c]) if layout.transpose[k] else pots_np[c]
+            for k, c in enumerate(layout.clique_order)
+        ]
+    )
+
+
+def chain_posterior_program(plan: Plan, layout: ChainLayout):
+    """Build ``fn(A, masks) -> (stacked posteriors [m+1, B, K], logZ [B])``.
+
+    ``A``: prestacked [m, K, K] transitions (``stack_chain_potentials``),
+    linear space, on the device the program runs on.  ``masks``: dict var_id
+    -> [B, K] linear-space mask (observed vars only), or a prestacked
+    [m+1, B, K] mask tensor in chain order (dense evidence).  The posteriors
+    come back stacked in chain order; :class:`StackedPosteriors` maps var
+    ids to positions."""
+    m = len(layout.clique_order)
+    K = layout.card
+    chain_pos = {v: k for k, v in enumerate(layout.var_order)}
+
+    def fn(A: torch.Tensor, masks):
+        dtype, device = A.dtype, A.device
+        if isinstance(masks, dict):
+            B = next(iter(masks.values())).shape[0] if masks else 1
+            # ones everywhere, the (few) observed variables written by index
+            M = torch.ones((m + 1, B, K), dtype=dtype, device=device)
+            if masks:
+                at = torch.tensor(
+                    [chain_pos[v] for v in masks], dtype=torch.long, device=device
+                )
+                M[at] = torch.stack(
+                    [mk.to(dtype=dtype, device=device) for mk in masks.values()]
+                )
+        else:
+            M = masks.to(dtype=dtype, device=device)
+            B = M.shape[1]
+        At = A.transpose(1, 2)
+        F_all = torch.empty((m + 1, B, K), dtype=dtype, device=device)
+        G_all = torch.empty((m + 1, B, K), dtype=dtype, device=device)
+        scale = torch.empty((m, B, 1), dtype=dtype, device=device)
+
+        # forward: each step's max lands in `scale`, whose logs sum to the
+        # logZ offset after the loop
+        F_all[0] = 1.0
+        for k in range(m):
+            Fn = torch.matmul(F_all[k] * M[k], A[k])
+            s = scale[k]
+            torch.amax(Fn, dim=-1, keepdim=True, out=s)
+            s.clamp_(min=_TINY)
+            torch.div(Fn, s, out=F_all[k + 1])
+
+        G_all[m] = 1.0
+        for k in range(m - 1, -1, -1):
+            Gp = torch.matmul(M[k + 1] * G_all[k + 1], At[k])
+            s = Gp.amax(dim=-1, keepdim=True).clamp_(min=_TINY)
+            torch.div(Gp, s, out=G_all[k])
+
+        # posteriors per chain position, normalized (scales cancel); the
+        # last position's sum is the forward pass's Z, since G_m = 1
+        post = F_all.mul_(M).mul_(G_all)
+        tot = post.sum(dim=-1, keepdim=True)
+        zfin = tot[m, :, 0]
+        logz = torch.where(
+            zfin > 0, torch.log(zfin.clamp_min(_TINY)),
+            torch.full_like(zfin, -float("inf")),
+        ) + torch.log(scale).sum(dim=0)[:, 0]
+        return post.div_(tot.clamp_min(_TINY)), logz
+
+    return fn
+
+
+class StackedPosteriors:
+    """Lazy per-variable-id view over the chain program's stacked
+    [m+1, B, K] posterior tensor.  Behaves like the list of tensors the
+    general program returns (``post[var_id]`` -> [B, K])."""
+
+    def __init__(self, stacked: torch.Tensor, var_order: Sequence[int]):
+        self._stacked = stacked
+        self._pos: Dict[int, int] = {v: k for k, v in enumerate(var_order)}
+
+    @property
+    def stacked(self) -> torch.Tensor:
+        return self._stacked
+
+    def __len__(self) -> int:
+        return len(self._pos)
+
+    def __getitem__(self, var_id: int) -> torch.Tensor:
+        return self._stacked[self._pos[var_id]]
+
+    def __iter__(self):
+        for v in range(len(self._pos)):
+            yield self[v]

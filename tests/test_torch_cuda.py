@@ -186,3 +186,139 @@ def test_posterior_batch_routes_through_kernel(cuda, monkeypatch):
     np.testing.assert_allclose(logz.cpu()[fin].double(), rlogz[fin], atol=1e-4)
     for p, rp in zip(post, rpost):
         np.testing.assert_allclose(p.cpu().double(), rp, rtol=1e-4, atol=1e-6)
+
+
+def _hub_model():
+    rng = np.random.default_rng(4)
+    hub = [f"h{i}" for i in range(12)]
+    factors = [hub] + [[h] for h in hub] + [[hub[i], f"t{i}"] for i in range(4)]
+    sizes = {**{h: 2 for h in hub}, **{f"t{i}": 2 for i in range(4)}}
+    values = [rng.random(tuple(sizes[v] for v in f)) + 0.1 for f in factors]
+    return factors, sizes, values
+
+
+@pytest.mark.cuda
+def test_bf16_serving_launches_kernel_with_bf16_inputs(cuda, monkeypatch):
+    """bfloat16 storage on the card: every routed contraction launches the
+    kernel with bf16 inputs, outputs are float32, and the result is within
+    the bf16 limits (posteriors 0.02, logZ 0.05) of the float32 engine; an
+    impossible row keeps the contract."""
+    monkeypatch.setattr(DEFAULT, "big_clique_min_states", 1 << 8)
+    factors, sizes, values = _hub_model()
+    tree = jt.create_junction_tree(factors, sizes)
+    evs = jt.random_evidence_batch(tree.plan, 300, ["t0", "t1", "h5", "h6"], seed=2)
+    masks = jt.batch_masks_sparse(tree.plan, evs)
+    masks["t0"][1] = 0.0
+    e32 = tree.engine(device=cuda, dtype=torch.float32).set_potentials(values)
+    before = fc.factored_masked_contract.launches
+    want, want_logz = e32.posterior_batch(masks)
+    n32 = fc.factored_masked_contract.launches - before
+    e16 = tree.engine(device=cuda, dtype=torch.bfloat16).set_potentials(values)
+    before = fc.factored_masked_contract.launches
+    before16 = fc.factored_masked_contract.launches_bf16
+    post, logz = e16.posterior_batch(masks)
+    torch.cuda.synchronize()
+    n16 = fc.factored_masked_contract.launches - before
+    assert n32 > 0 and n16 == n32
+    assert fc.factored_masked_contract.launches_bf16 - before16 == n16
+    assert logz.dtype == torch.float32 and all(p.dtype == torch.float32 for p in post)
+    assert torch.isneginf(logz[1]) and all((p[1] == 0).all() for p in post)
+    fin = torch.isfinite(want_logz)
+    assert (logz - want_logz)[fin].abs().max().item() <= 0.05
+    for p, w in zip(post, want):
+        assert not torch.isnan(p).any()
+        assert (p - w).abs().max().item() <= 0.02
+
+
+def _same_on_cpu(build, run, n_vars, rtol=1e-4, atol=1e-6, logz_atol=1e-3):
+    """``run(engine)`` on the card against the same engine on the CPU."""
+    post, logz = run(build(torch.device("cuda")))
+    torch.cuda.synchronize()
+    rpost, rlogz = run(build("cpu"))
+    assert torch.equal(torch.isneginf(logz.cpu()), torch.isneginf(rlogz))
+    fin = torch.isfinite(rlogz)
+    np.testing.assert_allclose(logz.cpu()[fin], rlogz[fin], rtol=0, atol=logz_atol)
+    for v in range(n_vars):
+        assert not torch.isnan(post[v]).any()
+        np.testing.assert_allclose(post[v].cpu(), rpost[v], rtol=rtol, atol=atol)
+    return post, rpost
+
+
+@pytest.mark.cuda
+def test_chain_program_on_cuda_matches_cpu(cuda):
+    from junctiontree_tpu_torch.models import chain_bn_model
+    from junctiontree_tpu_torch.scan_executor import StackedPosteriors
+
+    factors, sizes, values = chain_bn_model(300, card=3, seed=1)
+    tree = jt.create_junction_tree(factors, sizes)
+    evs = jt.random_evidence_batch(tree.plan, 33, ["x0", "x150", "x299"], seed=2)
+    masks = jt.batch_masks_sparse(tree.plan, evs)
+    masks["x150"][4] = 0.0
+    post, _ = _same_on_cpu(
+        lambda d: tree.engine(device=d).set_potentials(values),
+        lambda e: e.posterior_batch(masks), 300)
+    assert isinstance(post, StackedPosteriors) and post.stacked.is_cuda
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["star", "grid"])
+def test_fused_program_on_cuda_matches_cpu(cuda, model):
+    from junctiontree_tpu_torch.fused import FusedPosteriors
+    from junctiontree_tpu_torch.models import grid_mrf_model, star_bn_model
+
+    factors, sizes, values = (
+        star_bn_model(60) if model == "star" else grid_mrf_model(5, 5, seed=2))
+    tree = jt.create_junction_tree(factors, sizes)
+    labels = list(sizes)[1::7]
+    evs = jt.random_evidence_batch(tree.plan, 40, labels, seed=3)
+    masks = jt.batch_masks_sparse(tree.plan, evs)
+    masks[labels[0]][2] = 0.0
+    post, _ = _same_on_cpu(
+        lambda d: tree.engine(device=d).set_potentials(values),
+        lambda e: e.posterior_batch(masks, mode="fused"), len(sizes))
+    assert isinstance(post, FusedPosteriors)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("semiring", ["log_sum_exp", "max_product"])
+@pytest.mark.parametrize("big_scope", [False, True])
+def test_log_engines_on_cuda_match_cpu(cuda, semiring, big_scope, monkeypatch):
+    from junctiontree_tpu_torch.models import grid_mrf_model
+    from junctiontree_tpu_torch.ops import semirings
+
+    if big_scope:
+        monkeypatch.setattr(semirings, "LOG_EINSUM_MIN_STATES", 1)
+    sr = jt.SEMIRINGS[semiring]
+    factors, sizes, values = grid_mrf_model(4, 4, seed=6)
+    tree = jt.create_junction_tree(factors, sizes)
+    evs = jt.random_evidence_batch(tree.plan, 9, list(sizes)[:4], seed=7)
+    masks = jt.batch_masks_sparse(tree.plan, evs, sr)
+    masks[list(sizes)[0]][1] = -np.inf
+    _same_on_cpu(
+        lambda d: tree.engine(semiring, device=d).set_potentials(values),
+        lambda e: e.posterior_batch(masks), len(sizes))
+
+
+@pytest.mark.cuda
+def test_chunked_and_division_on_cuda_match_cpu(cuda, monkeypatch):
+    from junctiontree_tpu_torch.models import alarm_like
+
+    factors, sizes, values = alarm_like(seed=1)
+    tree = jt.create_junction_tree(factors, sizes)
+    labels = list(sizes)[::3]
+    evs = jt.random_evidence_batch(tree.plan, 50, labels, seed=5)
+    masks = jt.batch_masks_sparse(tree.plan, evs)
+    masks[labels[0]][40] = 0.0
+    post, _ = _same_on_cpu(
+        lambda d: tree.engine(device=d).set_potentials(values),
+        lambda e: e.posterior_batch(masks, chunk=16), len(sizes))
+    assert all(tuple(p.shape) == (50, s) for p, s in zip(post, tree.plan.sizes))
+    monkeypatch.setattr(DEFAULT, "distribute_division", True)
+    _same_on_cpu(
+        lambda d: jt.Engine(tree.plan, device=d).set_potentials(values),
+        lambda e: e.posterior_batch(masks, mode="general"), len(sizes))
+    qm, qz = tree.engine(device=cuda).set_potentials(values).query_batch(masks)
+    rm, rz = tree.engine(device="cpu").set_potentials(values).query_batch(masks)
+    np.testing.assert_allclose(qz.cpu(), rz, rtol=1e-4, atol=1e-30)
+    for a, b in zip(qm, rm):
+        np.testing.assert_allclose(a.cpu(), b, rtol=1e-4, atol=1e-30)

@@ -61,6 +61,56 @@ def test_query_matches_jax_and_oracle(name):
         np.testing.assert_allclose(m, o / o.sum(), rtol=1e-9, atol=1e-15)
 
 
+@pytest.mark.parametrize("semiring", ["sum_product", "log_sum_exp", "max_product"])
+@pytest.mark.parametrize("sparse", [True, False])
+def test_query_batch_matches_jax_and_query(semiring, sparse):
+    """``query_batch`` (the unrescaled batch-aware program on the parity
+    path) against the JAX package's and, row by row, against ``query``
+    (float64, rtol 1e-9, atol 1e-12 for a log Z of 0): unnormalized marginals
+    and Z in semiring space."""
+    sr = jt.SEMIRINGS[semiring]
+    factors, sizes, values = alarm_like(seed=3)
+    tree = jt.create_junction_tree(factors, sizes)
+    eng = tree.engine(semiring, device="cpu", dtype=torch.float64) \
+        .set_potentials(values)
+    evs = [{"n0": 0, "n10": 1}, {}, {"n0": 1, "n30": 0}]
+    masks = (jt.batch_masks_sparse if sparse else jt.batch_masks)(
+        tree.plan, evs, sr)
+    margs, z = eng.query_batch(masks)
+    assert len(margs) == tree.plan.num_vars and tuple(z.shape) == (3,)
+    jeng = jt_jax.create_junction_tree(factors, sizes).engine(semiring) \
+        .set_potentials(values)
+    jmargs, jz = jeng.query_batch(masks)
+    np.testing.assert_allclose(z.numpy(), np.asarray(jz), rtol=1e-9, atol=1e-12)
+    for m, jm in zip(margs, jmargs):
+        np.testing.assert_allclose(m.numpy(), np.asarray(jm), rtol=1e-9, atol=1e-12)
+    for b, ev in enumerate(evs):
+        qm, qz = eng.query(ev, normalize=False)
+        np.testing.assert_allclose(float(sr.to_linear(z[b])), qz, rtol=1e-9)
+        for m, q in zip(margs, qm):
+            np.testing.assert_allclose(sr.to_linear(m[b]).numpy(), q, rtol=1e-9)
+
+
+def test_evaluate_cliques_on_device_matches_host():
+    """The device-side clique evaluation against the NumPy one, in linear
+    and log space (float64, exact to rounding)."""
+    from junctiontree_tpu_torch.executor import evaluate_cliques, evaluate_cliques_np
+
+    factors, sizes, values = grid_mrf_model(3, 3, seed=1)
+    factors, values = factors + [[]], values + [np.asarray(2.5)]
+    plan = jt.compile_plan(factors, sizes)
+    for sr in (jt.SUM_PRODUCT, jt.LOG_SUM_EXP):
+        vals = [np.log(v) if sr.is_log else np.asarray(v, dtype=np.float64)
+                for v in values]
+        want = evaluate_cliques_np(plan, vals, sr)
+        got = evaluate_cliques(plan, [torch.as_tensor(v) for v in vals], sr)
+        for g, w in zip(got, want):
+            assert tuple(g.shape) == w.shape
+            np.testing.assert_allclose(g.numpy(), w, rtol=1e-14)
+    with pytest.raises(ValueError, match="shape"):
+        evaluate_cliques(plan, [torch.ones(3)] + [torch.as_tensor(v) for v in values[1:]])
+
+
 def _sprinkler_engine():
     factors, sizes, values = sprinkler_model()
     tree = jt.create_junction_tree(factors, sizes)

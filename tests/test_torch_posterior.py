@@ -12,7 +12,12 @@ import junctiontree_tpu_torch as jt
 from junctiontree_tpu.config import DEFAULT as JAX_DEFAULT
 from junctiontree_tpu.ops import pallas_contract as jax_pc
 from junctiontree_tpu_torch.config import DEFAULT
-from junctiontree_tpu_torch.models import alarm_like, grid_mrf_model, insurance_like
+from junctiontree_tpu_torch.models import (
+    alarm_like,
+    chain_bn_model,
+    grid_mrf_model,
+    insurance_like,
+)
 from junctiontree_tpu_torch.ops import factored_contract as fc
 
 
@@ -142,7 +147,104 @@ def test_posterior_modes():
     a, za = eng.posterior_batch(masks, mode="auto")
     b, zb = eng.posterior_batch(masks, mode="general")
     assert torch.equal(za, zb) and all(torch.equal(x, y) for x, y in zip(a, b))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.posterior_batch(masks, mode="fused")
+    c, zc = eng.posterior_batch(masks, mode="fused")
+    torch.testing.assert_close(zc, zb, rtol=1e-5, atol=1e-6)
+    for v in range(tree.plan.num_vars):
+        torch.testing.assert_close(c[v], b[v], rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="unknown mode"):
+        eng.posterior_batch(masks, mode="scan")
     with pytest.raises(ValueError, match=r"\[B, 2\]"):
         eng.posterior_batch({"g0_0": np.ones((2, 3))})
+
+
+@pytest.mark.parametrize("semiring", ["sum_product", "log_sum_exp", "max_product"])
+@pytest.mark.parametrize("B,chunk", [(7, 3), (6, 3), (5, 1)])
+def test_posterior_batch_chunked_matches_unchunked_and_jax(semiring, B, chunk):
+    """``chunk=`` serves row slices through the general program into
+    preallocated outputs (the last slice shorter, no padding): equal to the
+    unchunked call (float64, rtol 1e-12) and to the JAX package's chunked
+    call (rtol 1e-8), in all three semirings."""
+    sr = jt.SEMIRINGS[semiring]
+    factors, sizes, values = grid_mrf_model(3, 3, seed=4)
+    tree = jt.create_junction_tree(factors, sizes)
+    evs = jt.random_evidence_batch(tree.plan, B, ["g0_0", "g1_2", "g2_1"], seed=B)
+    evs[2] = {}
+    masks = jt.batch_masks_sparse(tree.plan, evs, sr)
+    eng = tree.engine(semiring, device="cpu", dtype=torch.float64) \
+        .set_potentials(values)
+    post, logz = eng.posterior_batch(masks, mode="general")
+    cpost, clogz = eng.posterior_batch(masks, chunk=chunk)
+    assert tuple(clogz.shape) == (B,)
+    np.testing.assert_allclose(clogz, logz, rtol=1e-12)
+    for p, cp in zip(post, cpost):
+        assert tuple(cp.shape) == tuple(p.shape)
+        np.testing.assert_allclose(cp, p, rtol=1e-12, atol=1e-15)
+    jeng = jt_jax.Engine(
+        jt_jax.create_junction_tree(factors, sizes).plan,
+        jt_jax.SEMIRINGS[semiring],
+    ).set_potentials(values)
+    jpost, jlogz = jeng.posterior_batch(masks, chunk=chunk)
+    np.testing.assert_allclose(clogz.numpy(), np.asarray(jlogz), rtol=1e-8)
+    for cp, jp in zip(cpost, jpost):
+        np.testing.assert_allclose(cp.numpy(), np.asarray(jp), rtol=1e-8, atol=1e-12)
+
+
+def test_posterior_batch_chunk_edges(monkeypatch):
+    """``chunk < 1`` raises; ``B <= chunk`` is the unchunked call in the
+    caller's mode; masks are converted once; an impossible row in a later
+    chunk keeps the contract."""
+    factors, sizes, values = chain_bn_model(9, seed=2)
+    tree = jt.create_junction_tree(factors, sizes)
+    eng = tree.engine(device="cpu", dtype=torch.float64).set_potentials(values)
+    evs = jt.random_evidence_batch(tree.plan, 5, ["x4", "x8"], seed=1)
+    masks = jt.batch_masks_sparse(tree.plan, evs)
+    masks["x4"][4] = 0.0
+    for bad in (0, -2):
+        with pytest.raises(ValueError, match="chunk must be >= 1"):
+            eng.posterior_batch(masks, chunk=bad)
+    from junctiontree_tpu_torch.scan_executor import StackedPosteriors
+
+    whole, _ = eng.posterior_batch(masks, chunk=5)       # B <= chunk: auto
+    assert isinstance(whole, StackedPosteriors)
+    general, _ = eng.posterior_batch(masks, mode="general", chunk=8)
+    assert isinstance(general, list)
+    conversions = []
+    inner = eng._masks_to_program_args
+    monkeypatch.setattr(
+        eng, "_masks_to_program_args",
+        lambda mb: conversions.append(1) or inner(mb))
+    cpost, clogz = eng.posterior_batch(masks, chunk=2)   # 2 + 2 + 1 rows
+    assert conversions == [1]
+    assert isinstance(cpost, list) and torch.isneginf(clogz[4])
+    assert torch.isfinite(clogz[:4]).all()
+    for v in range(9):
+        assert (cpost[v][4] == 0).all()
+        np.testing.assert_allclose(cpost[v], whole[v], rtol=1e-9, atol=1e-14)
+
+
+@pytest.mark.parametrize("semiring", ["log_sum_exp", "max_product"])
+def test_engine_from_numpy_carries_semiring_and_dtype(semiring):
+    """One set of arrays builds both engines: the JAX engine's log-space
+    clique potentials serve in the port's engine of the same semiring."""
+    sr = jt.SEMIRINGS[semiring]
+    factors, sizes, values = alarm_like(seed=4)
+    jtree = jt_jax.create_junction_tree(factors, sizes)
+    jeng = jt_jax.Engine(jtree.plan, jt_jax.SEMIRINGS[semiring]) \
+        .set_potentials(values)
+    eng = jt.engine_from_numpy(
+        jtree.plan.to_json(), jeng._pots_np, device="cpu",
+        dtype=torch.float64, semiring=sr,
+    )
+    assert eng.semiring == sr and eng.dtype == torch.float64
+    evs = jt.random_evidence_batch(eng.plan, 4, list(sizes)[1::6], seed=3)
+    masks = jt.batch_masks_sparse(eng.plan, evs, sr)
+    post, logz = eng.posterior_batch(masks)
+    jpost, jlogz = jeng.posterior_batch(masks, mode="general")
+    np.testing.assert_allclose(logz.numpy(), np.asarray(jlogz), rtol=1e-8)
+    for p, jp in zip(post, jpost):
+        np.testing.assert_allclose(p.numpy(), np.asarray(jp), rtol=1e-8, atol=1e-12)
+    e16 = jt.engine_from_numpy(
+        jtree.plan.to_json(),
+        jtree.engine().set_potentials(values)._pots_np,
+        device="cpu", dtype=torch.bfloat16)
+    assert e16.storage_dtype() == torch.bfloat16

@@ -89,7 +89,7 @@ def test_planner_bound_on_hailfinder_program():
     mp = pytest.MonkeyPatch()
     mp.setattr(semirings, "plan_contraction", spy)
     try:
-        margs, logz = batched_propagate_program(plan, observed=obs)(
+        margs, logz = batched_propagate_program(plan, observed=obs, rescale=True)(
             pots, masks
         )
     finally:
