@@ -27,7 +27,22 @@ public entry points (``create_junction_tree(...).engine(...)
   ``mode="general"``;
 * ``chunked_serving``: ``hailfinder_like()`` B = 256 with ``chunk=128``
   against two B = 128 calls, and the 8x8 grid with the distribute-pass
-  division on against off.
+  division on against off;
+* ``map_serving``: ``map_assignment_batch`` on ``hailfinder_like()`` with and
+  without ``chunk=`` (the tree-MAP program), on the 5,000-chain (the Viterbi
+  loop), and ``top_k_assignments_batch(k=5)`` on the 8x8 grid;
+* ``entropy_joint_serving``: ``entropy_batch`` and ``joint_marginal_batch``
+  on the big clique (every big contraction runs the kernel, at C = 1, 4 and
+  8), held to float64, a far-apart joint and ``mutual_information`` on
+  ``hailfinder_like()``, and ``entropy_batch`` on its log-sum-exp engine;
+* ``incremental_serving``: an ``Engine.incremental`` session on
+  ``hailfinder_like()`` and on the big clique with 18 two-variable tails (the
+  session reaches the kernel through the same router), each delta held to a
+  fresh ``posterior_batch`` under the merged evidence, the second also to
+  the float64 engine;
+* ``surgery_checkpoint``: ``multiply_factor`` against an engine built on
+  ``surgery.add_factor``'s plan, ``save`` and ``load(device=...)``, and
+  ``max_feasible_batch`` beside the measured peak.
 
 With ``--profile`` the serving models also print their device time by
 kernel (``torch.profiler``).  Each phase prints one JSON line; the kernel
@@ -124,12 +139,11 @@ def big_clique_model():
     return factors, sizes, values, names
 
 
-def serving_shapes(plan, masks):
-    """(R1, R2, C, B) of every kernel call one posterior_batch on ``plan``
-    makes, from a run on meta tensors (shapes only, nothing computed)."""
-    import torch
-
-    from junctiontree_tpu_torch.executor import BatchedProgramBuilder
+def k1_calls_on_meta(plan, values, run):
+    """What ``run(engine)`` asks of the kernel, from a run on meta tensors
+    (shapes only, nothing computed, no device): the (R1, R2, C, B) of every
+    call the route makes to the kernel's wrapper, in order."""
+    import junctiontree_tpu_torch as jt
     from junctiontree_tpu_torch.ops import factored_contract as fc
 
     shapes = []
@@ -139,17 +153,15 @@ def serving_shapes(plan, masks):
         shapes.append(tuple(int(d) for d in pot.shape) + (int(w1.shape[0]),))
         return wrapped(pot, w1, w2)
 
-    ids = sorted(plan.table.id_of(k) for k in masks)
-    pots = [torch.empty(plan.clique_shape(c), device="meta")
-            for c in range(plan.tri.num_cliques)]
-    meta_masks = [torch.empty(masks[plan.table.label_of(v)].shape, device="meta")
-                  for v in ids]
+    eng = jt.Engine(plan, device="meta").set_potentials(values)
+    calls = fc.big_clique_sep_message.calls
     fc.factored_masked_contract = record
     try:
-        BatchedProgramBuilder(plan, observed=ids, rescale=True).full()(
-            pots, meta_masks)
+        run(eng)
     finally:
         fc.factored_masked_contract = wrapped
+    require(fc.big_clique_sep_message.calls - calls == len(shapes),
+            "route calls and kernel calls differ on meta tensors")
     return shapes
 
 
@@ -324,7 +336,8 @@ def phase_log(dev, tree, values, masks, lin_post, lin_logz):
 def phase_chain(dev, profile):
     """A 5,000-variable chain, B = 1024, auto mode: the forward-backward
     program, 16 rows against the same program in float64, and a 200-variable
-    chain against the general program."""
+    chain against the general program.  Returns the 5,000-chain's (tree,
+    values, masks) for the MAP phase."""
     import torch
 
     import junctiontree_tpu_torch as jt
@@ -374,6 +387,7 @@ def phase_chain(dev, profile):
         line.update(device_busy_ms_per_step=busy, kernels_per_step=n_kernels,
                     top_kernels=top[:4])
     del eng, ref, post, ref_post
+    long_chain = (tree, values, masks)
     # a 200-variable chain: the chain program against the general one
     factors, sizes, values = chain_bn_model(200, card=3, seed=3)
     tree = jt.create_junction_tree(factors, sizes)
@@ -390,6 +404,7 @@ def phase_chain(dev, profile):
         cpost, clogz, gpost, glogz, 200, "chain 200 vs general",
         rtol=1e-4, atol=1e-6, logz_atol=1e-3)
     emit(line)
+    return long_chain
 
 
 def phase_fused(dev, profile):
@@ -531,6 +546,529 @@ def phase_chunked(dev, hail_eng, hail_plan, grid):
     emit(line)
 
 
+def log_masks(masks, rows=None):
+    """Linear 0/1 evidence masks as log-space masks (0 / -inf)."""
+    import numpy as np
+
+    return {k: np.where(m[:rows] > 0, 0.0, -np.inf).astype(np.float32)
+            for k, m in masks.items()}
+
+
+def tree_map_bytes(plan, B, itemsize=4):
+    """Reckoned peak of the tree-MAP program at batch B: the largest
+    clique's [B, states] scores and their (sep, rest)-ordered copy, every
+    clique's int32 [B, sep_states] backpointers, and the largest separator's
+    maxima with their int64 indices."""
+    st = plan.stats()
+    sep_total = 0
+    for sv in plan.sep_vars:
+        n = 1
+        for v in sv:
+            n *= plan.sizes[v]
+        sep_total += n
+    return B * (2 * st["max_clique_states"] * itemsize + 4 * sep_total
+                + st["max_sep_states"] * (itemsize + 8 + 4))
+
+
+def phase_map(dev, hail, chain, grid, profile):
+    """MAP and k-best decoding: the tree-MAP program on hailfinder_like with
+    and without ``chunk=``, the Viterbi loop on the 5,000-chain, and
+    ``top_k_assignments_batch(k=5)`` on the 8x8 grid."""
+    import torch
+
+    import junctiontree_tpu_torch as jt
+    from junctiontree_tpu_torch.map_executor import tree_map_program
+    from junctiontree_tpu_torch.models import chain_bn_model
+
+    # (a) hailfinder_like: the largest power-of-two B up to the posterior
+    # phase's 128 whose reckoned peak stays under half the card's memory
+    tree, plan = hail["tree"], hail["tree"].plan
+    total = torch.cuda.get_device_properties(dev).total_memory
+    B = hail["B"]
+    while B > 1 and tree_map_bytes(plan, B) > total // 2:
+        B //= 2
+    masks = log_masks(hail["masks"], B)
+    eng = tree.engine("max_product", device=dev).set_potentials(hail["values"])
+    k1 = k1_counts_reset()
+    (assign, score), peak = peak_bytes(lambda: eng.map_assignment_batch(masks))
+    chunk = max(1, B // 4)
+    (c_assign, c_score), c_peak = peak_bytes(
+        lambda: eng.map_assignment_batch(masks, chunk=chunk))
+    require(k1.launches == 0, "tree MAP launched the big-clique kernel")
+    require(assign.dtype == torch.int32
+            and tuple(assign.shape) == (B, plan.num_vars), "MAP assignment")
+    require(torch.equal(c_score, score) and torch.equal(c_assign, assign),
+            "chunked MAP differs from the unchunked call")
+    require(float(score[1]) < -1e29 and not bool(torch.isnan(score).any()),
+            "MAP: the impossible row does not score below -1e29")
+    # each assignment attains its score, and beats the per-variable argmax
+    # of the posteriors (which need not be a consistent assignment)
+    a_host, s_host = assign.cpu().numpy(), score.cpu().numpy()
+    greedy = torch.stack(
+        [hail["post"][v][:B].argmax(dim=-1) for v in range(plan.num_vars)], dim=1
+    ).cpu().numpy()
+    checked, worst, beaten = [0] + list(range(2, 10)), 0.0, 0
+    for b in checked:
+        own = eng.score_assignment(eng._labelled(a_host[b]))
+        worst = max(worst, float(abs(own - s_host[b]) / abs(own)))
+        other = eng.score_assignment(eng._labelled(greedy[b]))
+        require(s_host[b] >= other - 1e-4 * abs(s_host[b]),
+                f"MAP row {b}: score {s_host[b]} below the argmax assignment's {other}")
+        beaten += bool(s_host[b] > other + 1e-4 * abs(s_host[b]))
+    require(worst <= 1e-5, f"MAP: score_assignment differs from the score ({worst})")
+    t = step_ms(lambda: eng.map_assignment_batch(masks), iters=3, warmup=1)
+    t_c = step_ms(lambda: eng.map_assignment_batch(masks, chunk=chunk),
+                  iters=3, warmup=1)
+    line = {"phase": "map_serving", "model": "hailfinder_like", "B": B,
+            "program": "tree_map", "step_ms": t, "queries_per_s": B / t * 1e3,
+            "peak_mem_bytes": peak, "reckoned_peak_bytes": tree_map_bytes(plan, B),
+            "chunk": chunk, "chunked_step_ms": t_c, "chunked_peak_mem_bytes": c_peak,
+            "chunked_equal": True, "rows_scored": len(checked),
+            "max_rel_err_score_assignment": worst,
+            "rows_strictly_above_posterior_argmax": int(beaten),
+            "kernel_launches": k1.launches}
+    if profile:
+        busy, n_kernels, top = profile_step(
+            lambda: eng.map_assignment_batch(masks), steps=2)
+        line.update(device_busy_ms_per_step=busy, kernels_per_step=n_kernels,
+                    top_kernels=top[:4])
+    del eng, assign, c_assign
+    torch.cuda.empty_cache()
+
+    # (b) the 5,000-chain, B = 1024: the Viterbi loop, not the tree program
+    ctree, cvalues, cmasks = chain
+    n, Bc = ctree.plan.num_vars, 1024
+    ceng = ctree.engine("max_product", device=dev).set_potentials(cvalues)
+    lm = log_masks(cmasks)
+    (c_a, c_s), c_pk = peak_bytes(lambda: ceng.map_assignment_batch(lm))
+    require(("viterbi",) in ceng._programs
+            and not any(k[0] == "tree_map" for k in ceng._programs),
+            "chain MAP did not take the Viterbi loop")
+    require(tuple(c_a.shape) == (Bc, n) and c_a.dtype == torch.int32,
+            "chain MAP assignment")
+    require(bool(torch.isneginf(c_s[2])) and bool(torch.isfinite(c_s[3:]).all()),
+            "chain MAP scores")
+    own = ceng.score_assignment(ceng._labelled(c_a[0].cpu().numpy()))
+    require(abs(own - float(c_s[0])) <= 1e-4 * abs(own),
+            f"chain MAP: row 0 scores {float(c_s[0])}, its assignment {own}")
+    t_v = step_ms(lambda: ceng.map_assignment_batch(lm), iters=3, warmup=1)
+    line.update(chain_variables=n, chain_B=Bc, chain_program="viterbi",
+                chain_step_ms=t_v, chain_queries_per_s=Bc / t_v * 1e3,
+                chain_us_per_chain_step=t_v * 1e3 / (2 * (n - 1)),
+                chain_peak_mem_bytes=c_pk,
+                chain_launches_reckoned=4 * (n - 1))
+    if profile:
+        busy, n_kernels, _ = profile_step(
+            lambda: ceng.map_assignment_batch(lm), steps=2)
+        line.update(chain_device_busy_ms_per_step=busy,
+                    chain_kernels_per_step=n_kernels)
+    del ceng, c_a
+    # a 200-variable chain: the Viterbi loop against the tree program
+    f2, s2, v2 = chain_bn_model(200, card=3, seed=3)
+    t2 = jt.create_junction_tree(f2, s2)
+    e2 = t2.engine("max_product", device=dev).set_potentials(v2)
+    m2 = log_masks(jt.batch_masks_sparse(t2.plan, jt.random_evidence_batch(
+        t2.plan, 64, ["x0", "x77", "x199"], seed=4)))
+    va, vs = e2.map_assignment_batch(m2)
+    ids = tuple(sorted(t2.plan.table.id_of(k) for k in m2))
+    ta, ts = tree_map_program(t2.plan, ids)(
+        e2._pots, [e2._place(m2[t2.plan.table.label_of(v)]) for v in ids])
+    err = ((vs - ts).abs() / ts.abs()).max().item()
+    require(err <= 1e-5, f"Viterbi and tree-MAP scores differ on chain 200: {err}")
+    line["chain200_max_rel_err_viterbi_vs_tree_map"] = err
+    line["chain200_assignments_equal"] = bool(torch.equal(va, ta))
+
+    # (c) the 8x8 grid, top_k_assignments_batch(k = 5), B = 1024
+    gtree, gvalues, gmasks = grid[:3]
+    Bg, k = 1024, 5
+    gm = log_masks(gmasks, Bg)
+    geng = gtree.engine("max_product", device=dev).set_potentials(gvalues)
+    (ka, ks), k_pk = peak_bytes(lambda: geng.top_k_assignments_batch(gm, k=k))
+    ma, ms = geng.map_assignment_batch(gm)
+    ok = ms > -1e29
+    require(int((~ok).sum()) == 1 and not bool(ok[7]), "k-best: impossible row")
+    require(tuple(ka.shape) == (Bg, k, 64) and ka.dtype == torch.int32, "k-best shapes")
+    require(bool((ks[:, :-1] >= ks[:, 1:]).all()), "k-best scores not descending")
+    for i in range(k):
+        for j in range(i + 1, k):
+            require(bool((ka[ok, i] != ka[ok, j]).any(dim=-1).all()),
+                    f"k-best: ranks {i} and {j} are one assignment in some row")
+    first = ((ks[ok, 0] - ms[ok]).abs() / ms[ok].abs()).max().item()
+    require(first <= 1e-5, f"k-best: first differs from MAP by {first}")
+    own = geng.score_assignment(geng._labelled(ka[0, k - 1].cpu().numpy()))
+    require(abs(own - float(ks[0, k - 1])) <= 1e-4 * abs(own),
+            "k-best: the last of row 0 does not attain its score")
+    t_k = step_ms(lambda: geng.top_k_assignments_batch(gm, k=k), iters=5)
+    line.update(kbest_grid="8x8", kbest_B=Bg, k=k, kbest_step_ms=t_k,
+                kbest_queries_per_s=Bg / t_k * 1e3, kbest_peak_mem_bytes=k_pk,
+                kbest_first_vs_map_max_rel_err=first,
+                kbest_first_assignment_equals_map=bool(
+                    torch.equal(ka[ok, 0], ma[ok])))
+    emit(line)
+
+
+def phase_entropy_joint(dev, big, hail, path_shapes, profile):
+    """``entropy_batch`` and ``joint_marginal_batch`` on the big clique: every
+    big contraction launches the kernel (as many launches as the route makes
+    calls on CPU meta tensors), results held to the float64 engine on the
+    card, which does not use the kernel.  Then a joint of two far-apart
+    variables and ``mutual_information`` on hailfinder_like (no kernel), and
+    a few rows of ``entropy_batch`` on its log-sum-exp engine with the peak
+    memory.  Returns {path: kernel launches of one call}."""
+    import numpy as np
+    import torch
+
+    from junctiontree_tpu_torch.joint import _steiner_order_scopes
+
+    tree, masks, names = big["tree"], big["masks"], big["names"]
+    eng = tree.engine(device=dev).set_potentials(big["values"])
+    ref = tree.engine(device=dev, dtype=torch.float64).set_potentials(big["values"])
+    B = int(next(iter(masks.values())).shape[0])
+    runs = {
+        "entropy_batch": lambda e: e.entropy_batch(masks),
+        "joint_marginal_batch over 2": lambda e: e.joint_marginal_batch(
+            names[12:14], masks),
+        "joint_marginal_batch over 3": lambda e: e.joint_marginal_batch(
+            names[15:18], masks),
+    }
+    line = {"phase": "entropy_joint_serving", "model": "big_clique", "B": B,
+            "limits": {"rtol": 1e-4, "atol": 1e-6}}
+    launched = {}
+    for name, run in runs.items():
+        k1 = k1_counts_reset()
+        (out, z), peak = peak_bytes(lambda: run(eng))
+        launched[name] = k1.launches
+        require(k1.launches > 0 and k1.launches_bf16 == 0,
+                f"{name}: {k1.launches} kernel launches")
+        require(k1.launches == len(path_shapes[name]),
+                f"{name}: {k1.launches} kernel launches, the route makes "
+                f"{len(path_shapes[name])} calls on meta tensors")
+        want, want_z = run(ref)
+        require(out.dtype == torch.float32 and want.dtype == torch.float64,
+                f"{name}: dtypes")
+        require(bool(torch.isfinite(out).all()) and bool(torch.isfinite(z).all()),
+                f"{name}: non-finite result")
+        # row 0 is impossible evidence: H = 0 or a zero table, and Z = 0
+        require(bool((out[0] == 0).all()) and float(z[0]) == 0.0,
+                f"{name}: impossible row")
+        np.testing.assert_allclose(out.double().cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-6, err_msg=name)
+        np.testing.assert_allclose(z.double().cpu().numpy(), want_z.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-30, err_msg=name + " Z")
+        key = name.replace("_batch", "").replace(" over ", "")
+        line.update({
+            key + "_kernel_launches": launched[name],
+            key + "_route_calls_on_meta": len(path_shapes[name]),
+            key + "_step_ms": step_ms(lambda: run(eng)),
+            key + "_peak_mem_bytes": peak,
+            key + "_max_abs_err_vs_f64":
+                (out.double() - want).abs().max().item()})
+        if profile:
+            busy, n_kernels, top = profile_step(lambda: run(eng))
+            line.update({key + "_device_busy_ms_per_step": busy,
+                         key + "_kernels_per_step": n_kernels,
+                         key + "_top_kernels": top[:4]})
+    del ref
+
+    # hailfinder_like, B = 128: the two variables whose Steiner subtree is
+    # the longest that stays under the intermediate cap
+    htree, heng, hmasks = hail["tree"], hail["eng"], hail["masks"]
+    plan = htree.plan
+    free = [v for v in range(plan.num_vars)
+            if plan.table.label_of(v) not in hmasks]
+    best = None
+    for i, a in enumerate(free):
+        for b in free[i + 1:]:
+            try:
+                order = _steiner_order_scopes(plan, [a, b], 1 << 21)[0]
+            except ValueError:
+                continue
+            if best is None or len(order) > best[0]:
+                best = (len(order), a, b)
+    require(best is not None and best[0] >= 3, f"no far pair found: {best}")
+    x, y = plan.table.label_of(best[1]), plan.table.label_of(best[2])
+    k1 = k1_counts_reset()
+    (tables, z), peak = peak_bytes(
+        lambda: heng.joint_marginal_batch([x, y], hmasks))
+    rows = 16
+    href = htree.engine(device=dev, dtype=torch.float64).set_potentials(
+        hail["values"])
+    sub = {k: v[:rows] for k, v in hmasks.items()}
+    want, want_z = href.joint_marginal_batch([x, y], sub)
+    require(bool((tables[1] == 0).all()) and float(z[1]) == 0.0,
+            "hailfinder joint: impossible row")
+    np.testing.assert_allclose(tables[:rows].double().cpu().numpy(),
+                               want.cpu().numpy(), rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(z[:rows].double().cpu().numpy(),
+                               want_z.cpu().numpy(), rtol=1e-4, atol=1e-30)
+    ev = {k: int(v[0].argmax()) for k, v in hmasks.items()}  # row 0's evidence
+    mi = heng.mutual_information(x, y, ev)
+    mi64 = href.mutual_information(x, y, ev)
+    one, _ = heng.joint_marginal([x, y], ev)
+    require(abs(mi - mi64) <= 1e-5, f"mutual information {mi} against {mi64}")
+    np.testing.assert_allclose(one, tables[0].double().cpu().numpy(),
+                               rtol=1e-4, atol=1e-6)
+    require(k1.launches == 0, "hailfinder joints launched the kernel")
+    t = step_ms(lambda: heng.joint_marginal_batch([x, y], hmasks),
+                iters=3, warmup=1)
+    line.update(hailfinder_joint_of=[x, y], hailfinder_steiner_cliques=best[0],
+                hailfinder_B=int(z.shape[0]), hailfinder_joint_step_ms=t,
+                hailfinder_joint_peak_mem_bytes=peak,
+                hailfinder_joint_max_abs_err_vs_f64=(
+                    tables[:rows].double() - want).abs().max().item(),
+                hailfinder_rows_checked=rows, hailfinder_kernel_launches=0,
+                hailfinder_mutual_information=mi,
+                hailfinder_mutual_information_f64=mi64)
+
+    # a log-sum-exp engine's entropy_batch is the per-element form under
+    # torch.vmap, which holds [B, states] of every clique at once (and
+    # takes the log-matmul-exp branch at hailfinder_like's scopes): a few
+    # rows, against the float64 sum-product program on the same evidence
+    lrows = 8
+    leng = htree.engine("log_sum_exp", device=dev).set_potentials(hail["values"])
+    lm = log_masks(hmasks, lrows)
+    k1 = k1_counts_reset()
+    held = torch.cuda.memory_allocated()
+    (lent, lz), lpeak = peak_bytes(lambda: leng.entropy_batch(lm))
+    require(k1.launches == 0, "the log engine's entropy launched the kernel")
+    went, wz = href.entropy_batch({k: v[:lrows] for k, v in hmasks.items()})
+    require(float(lent[1]) == 0.0 and float(lz[1]) == 0.0,
+            "log-sum-exp entropy: impossible row")
+    require(bool(torch.isfinite(lent).all()) and bool(torch.isfinite(lz).all()),
+            "log-sum-exp entropy: non-finite result")
+    np.testing.assert_allclose(lent.double().cpu().numpy(), went.cpu().numpy(),
+                               rtol=1e-4, atol=1e-5,
+                               err_msg="log-sum-exp entropy_batch")
+    np.testing.assert_allclose(lz.double().cpu().numpy(), wz.cpu().numpy(),
+                               rtol=1e-4, atol=1e-30,
+                               err_msg="log-sum-exp entropy_batch Z")
+    t_l = step_ms(lambda: leng.entropy_batch(lm), iters=3, warmup=1)
+    line.update(log_entropy_model="hailfinder_like", log_entropy_B=lrows,
+                log_entropy_step_ms=t_l, log_entropy_peak_mem_bytes=lpeak,
+                log_entropy_mem_held_before_bytes=held,
+                log_entropy_max_abs_err_vs_f64=(
+                    lent.double() - went).abs().max().item(),
+                log_entropy_limits={"rtol": 1e-4, "atol": 1e-5})
+    del leng, href
+    emit(line)
+    return launched
+
+
+def tailed_big_clique_model():
+    """The big clique with a two-variable tail on each of its 18 variables,
+    seeded."""
+    import numpy as np
+
+    factors, sizes, values, names = big_clique_model()
+    rng = np.random.default_rng(1)
+    tails = [f"t{i}" for i in range(18)]
+    factors = factors + [[n, t] for n, t in zip(names, tails)]
+    sizes = {**sizes, **{t: 2 for t in tails}}
+    values = values + [rng.random((2, 2)) + 0.1 for _ in tails]
+    return factors, sizes, values, names, tails
+
+
+TAILED_PATH = "incremental (tailed big clique)"
+
+
+def tailed_session(B=4096):
+    """The incremental session that reaches the kernel: the big clique with
+    18 tails, batch B, evidence on 12 tails, a delta on one more tail and
+    three query variables; with what opening it (``opened``) and opening
+    plus one delta (``both``) ask of the kernel, from CPU meta tensors."""
+    import numpy as np
+
+    import junctiontree_tpu_torch as jt
+
+    factors, sizes, values, names, tails = tailed_big_clique_model()
+    tree = jt.create_junction_tree(factors, sizes)
+    plan = tree.plan
+    base = jt.batch_masks_sparse(
+        plan, jt.random_evidence_batch(plan, B, tails[:12], seed=3))
+    base[tails[0]][0] = 0.0  # row 0: impossible evidence
+    upd = {tails[5]: np.tile(np.array([[0.0, 1.0]], dtype=np.float32), (B, 1))}
+    qvars = [names[0], tails[17], tails[3]]
+    opened = k1_calls_on_meta(plan, values, lambda e: e.incremental(base))
+    both = k1_calls_on_meta(
+        plan, values, lambda e: e.incremental(base).query(upd, qvars))
+    require(both[:len(opened)] == opened, "opening a session is not the "
+            "first part of opening it and applying a delta")
+    return dict(tree=tree, values=values, B=B, base=base, upd=upd,
+                qvars=qvars, opened=opened, both=both)
+
+
+def check_delta(sess, eng, base, upd, qvars, what):
+    """One delta against a fresh ``posterior_batch`` under the merged
+    evidence (rtol 1e-5; posteriors atol 1e-6).  Returns the largest
+    absolute posterior error."""
+    import numpy as np
+    import torch
+
+    posts, logz = sess.query(upd, qvars)
+    full, full_logz = eng.posterior_batch({**base, **upd}, mode="general")
+    require(torch.equal(torch.isneginf(logz), torch.isneginf(full_logz)),
+            f"{what}: -inf rows differ")
+    fin = torch.isfinite(full_logz)
+    np.testing.assert_allclose(logz[fin].cpu().numpy(), full_logz[fin].cpu().numpy(),
+                               rtol=1e-5, err_msg=what + ": logZ")
+    worst = 0.0
+    for v, p in zip(qvars, posts):
+        want = full[eng.plan.table.id_of(v)]
+        np.testing.assert_allclose(p.cpu().numpy(), want.cpu().numpy(), rtol=1e-5,
+                                   atol=1e-6, err_msg=f"{what}: posterior of {v}")
+        require(bool((p[~fin] == 0).all()), f"{what}: impossible row is not zero")
+        worst = max(worst, (p - want).abs().max().item())
+    return worst
+
+
+def phase_incremental(dev, hail, tailed):
+    """Incremental sessions: hailfinder_like, B = 128 (a one-variable delta
+    with three query variables beside the full step), and the big clique
+    with 18 tails, B = 4096 (``tailed_session()``), whose session reaches
+    the kernel: its delta is held to a fresh ``posterior_batch`` and to the
+    float64 engine.  Returns the kernel launches of opening that session
+    and applying one delta."""
+    import numpy as np
+    import torch
+
+    tree, eng, base = hail["tree"], hail["eng"], hail["masks"]
+    plan = tree.plan
+    labels = [plan.table.label_of(v) for v in range(plan.num_vars)]
+    B = int(next(iter(base.values())).shape[0])
+    dirty = labels[1]                     # unobserved in the base evidence
+    qvars = [labels[4], labels[len(labels) // 2], labels[-6]]
+    upd = {dirty: np.zeros((B, plan.sizes[1]), dtype=np.float32)}
+    upd[dirty][:, 0] = 1.0
+    k1 = k1_counts_reset()
+    t0 = time.perf_counter()
+    sess = eng.incremental(base)
+    torch.cuda.synchronize()
+    t_open = (time.perf_counter() - t0) * 1e3
+    worst = check_delta(sess, eng, base, upd, qvars, "hailfinder delta")
+    require(k1.launches == 0, "hailfinder session launched the kernel")
+    merged = {**base, **upd}
+    t_delta = step_ms(lambda: sess.query(upd, qvars), iters=3, warmup=1)
+    t_full = step_ms(lambda: eng.posterior_batch(merged, mode="general"),
+                     iters=3, warmup=1)
+    line = {"phase": "incremental_serving", "model": "hailfinder_like", "B": B,
+            "delta_on": dirty, "query_vars": qvars, "session_open_ms": t_open,
+            "delta_step_ms": t_delta, "full_step_ms": t_full,
+            "delta_over_full": t_delta / t_full, "max_abs_err_vs_full": worst,
+            "limits": {"rtol": 1e-5, "posterior_atol": 1e-6}}
+    del sess
+
+    # the big clique with 18 two-variable tails: evidence on 12 tails
+    ttree, values, Bt = tailed["tree"], tailed["values"], tailed["B"]
+    tbase, tupd, tq = tailed["base"], tailed["upd"], tailed["qvars"]
+    opened, both = tailed["opened"], tailed["both"]
+    tplan = ttree.plan
+    teng = ttree.engine(device=dev).set_potentials(values)
+    k1 = k1_counts_reset()
+    tsess = teng.incremental(tbase)
+    n_open = k1.launches
+    tposts, tlogz = tsess.query(tupd, tq)
+    n_delta = k1.launches - n_open
+    require(n_open == len(opened) and n_delta == len(both) - len(opened),
+            f"session launches {n_open} + {n_delta}, the route makes "
+            f"{len(opened)} + {len(both) - len(opened)} calls on meta tensors")
+    require(n_open + n_delta > 0, "the tailed big clique's session never "
+            "launched the kernel")
+    tworst = check_delta(tsess, teng, tbase, tupd, tq, "tailed big clique delta")
+    tmerged = {**tbase, **tupd}
+    # and against the float64 engine on the card, which does not use the
+    # kernel, on the first rows
+    rows = 256
+    t64 = ttree.engine(device=dev, dtype=torch.float64).set_potentials(values)
+    p64, logz64 = t64.posterior_batch(
+        {k: v[:rows] for k, v in tmerged.items()}, mode="general")
+    tworst64 = check_close(
+        tposts, tlogz, [p64[tplan.table.id_of(v)] for v in tq], logz64,
+        len(tq), "tailed big clique delta vs float64", rows=rows, **F64_LIMITS)
+    del t64, p64
+    t_td = step_ms(lambda: tsess.query(tupd, tq))
+    t_tf = step_ms(lambda: teng.posterior_batch(tmerged, mode="general"))
+    root = tplan.tree.root
+    line.update(
+        tailed_model="big clique + 18 tails", tailed_B=Bt,
+        tailed_cliques=tplan.tri.num_cliques,
+        tailed_root_is_the_big_clique=len(tplan.clique_vars[root]) == 18,
+        tailed_open_kernel_launches=n_open,
+        tailed_delta_kernel_launches=n_delta,
+        tailed_open_route_calls_on_meta=len(opened),
+        tailed_delta_route_calls_on_meta=len(both) - len(opened),
+        tailed_delta_step_ms=t_td, tailed_full_step_ms=t_tf,
+        tailed_max_abs_err_vs_full=tworst,
+        tailed_max_abs_err_vs_f64=tworst64, tailed_rows_checked_vs_f64=rows,
+        tailed_limits_vs_f64=F64_LIMITS,
+        note="with the big clique at the root its collect message does not "
+             "exist, so opening launches nothing there and the delta's Z, "
+             "distribute and marginal contractions do; with a tail at the "
+             "root the big clique's collect message launches at opening")
+    emit(line)
+    return n_open + n_delta
+
+
+def phase_surgery(dev, big, hail):
+    """``multiply_factor`` on the big clique against an engine built on
+    ``surgery.add_factor``'s plan, a ``save`` / ``load(device=...)`` round
+    trip, and ``max_feasible_batch`` beside hailfinder_like's measured peak."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import junctiontree_tpu_torch as jt
+
+    tree, masks, names = big["tree"], big["masks"], big["names"]
+    plan = tree.plan
+    scope = [names[16], names[13]]  # two unobserved variables, unsorted
+    val = np.random.default_rng(5).random((2, 2)) + 0.1
+    eng = jt.Engine(plan, device=dev).set_potentials(big["values"])
+    before, _ = eng.posterior_batch(masks)
+    k1 = k1_counts_reset()
+    eng.multiply_factor(scope, val)
+    post, logz = eng.posterior_batch(masks)
+    launches = k1.launches
+    plan2, covered = jt.add_factor(plan, scope)
+    require(covered and plan2.tree is plan.tree, "add_factor: scope not covered")
+    grown = jt.Engine(plan2, device=dev).set_potentials(big["values"] + [val])
+    want, want_logz = grown.posterior_batch(masks)
+    worst = check_close(post, logz, want, want_logz, len(post),
+                        "multiply_factor vs add_factor", rtol=1e-5, atol=1e-6,
+                        logz_atol=1e-4)
+    moved = max((a - b).abs().max().item() for a, b in zip(post, before))
+    require(moved > 1e-3, "multiply_factor did not change the posteriors")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "engine.npz")
+        eng.save(path)
+        size = os.path.getsize(path)
+        back = jt.Engine.load(path, device=dev)
+    require(back.device == dev and back.plan.to_json() == plan.to_json(),
+            "load: device or plan")
+    bpost, blogz = back.posterior_batch(masks)
+    require(torch.equal(blogz, logz)
+            and all(torch.equal(a, b) for a, b in zip(bpost, post)),
+            "a loaded engine's posteriors are not bitwise equal")
+    heng = hail["eng"]
+    total = torch.cuda.get_device_properties(dev).total_memory
+    analysis = {"batch": hail["B"], "temp_bytes": hail["peak"]}
+    emit({"phase": "surgery_checkpoint", "model": "big_clique",
+          "multiply_factor_scope": scope, "kernel_launches": launches,
+          "max_abs_err_vs_add_factor_engine": worst,
+          "max_posterior_change": moved, "checkpoint_bytes": size,
+          "loaded_bitwise_equal": True,
+          "limits": {"rtol": 1e-5, "atol": 1e-6, "logz_atol": 1e-4},
+          "hailfinder_B": hail["B"], "hailfinder_peak_mem_bytes": hail["peak"],
+          "hailfinder_max_feasible_batch_default": heng.max_feasible_batch(),
+          "hailfinder_max_feasible_batch_card": heng.max_feasible_batch(
+              budget_bytes=total),
+          "hailfinder_max_feasible_batch_from_measured_peak":
+              heng.max_feasible_batch(budget_bytes=total, analysis=analysis),
+          "card_total_memory_bytes": total,
+          "describe_kernel_launches": eng.describe()["kernel_launches"]})
+
+
 def main() -> int:
     import torch
 
@@ -588,14 +1126,38 @@ def main() -> int:
     evs = jt.random_evidence_batch(plan, B, names[:12], seed=1)
     masks = jt.batch_masks_sparse(plan, evs)
     masks[names[0]][0] = 0.0  # row 0: impossible evidence
-    main_shapes = serving_shapes(plan, masks)
-    require(len(main_shapes) > 0, "the big-clique program routes no kernel call")
-    per_call = {s: main_shapes.count(s) for s in main_shapes}
+    # what each path of the big clique asks of the kernel (CPU meta tensors)
+    paths = {
+        "posterior_batch": lambda e: e.posterior_batch(masks),
+        "entropy_batch": lambda e: e.entropy_batch(masks),
+        "joint_marginal_batch over 2": lambda e: e.joint_marginal_batch(
+            names[12:14], masks),
+        "joint_marginal_batch over 3": lambda e: e.joint_marginal_batch(
+            names[15:18], masks),
+    }
+    path_shapes = {k: k1_calls_on_meta(plan, values, run)
+                   for k, run in paths.items()}
+    tailed = tailed_session()
+    path_shapes[TAILED_PATH] = tailed["both"]
+    require(all(len(v) > 0 for v in path_shapes.values()),
+            f"a big-clique path routes no kernel call: {path_shapes}")
+    main_shapes = path_shapes["posterior_batch"]
+    # per shape: {path: calls of one step}
+    per_call = {}
+    for k, shapes in path_shapes.items():
+        for sh in shapes:
+            per_call.setdefault(sh, {})[k] = shapes.count(sh)
     # edges: R1 = 1, ragged, C = 300 (r1 looped in the block), B = 70,000,
-    # rows that are not 16-byte aligned in w2, in pot, in both tilings
+    # rows that are not 16-byte aligned in w2, in pot, in both tilings; then
+    # joints over 5 and 6 query variables (C = 32 and 64: either side of the
+    # choice between the two column tilings), and R1 = 1 and unaligned rows
+    # at the joints' C
     edge_shapes = [(1, 37, 1, 5), (3, 50, 17, 33), (5, 70, 300, 130),
                    (64, 4095, 1, 4097), (2, 40, 3, 70000), (4, 37, 3, 130),
-                   (3, 64, 3, 40), (2, 64, 50, 100)]
+                   (3, 64, 3, 40), (2, 64, 50, 100),
+                   (64, 128, 32, 4096), (64, 64, 64, 4096), (1, 512, 8, 4096),
+                   (1, 37, 4, 130), (3, 37, 8, 130), (1, 50, 64, 100),
+                   (3, 37, 33, 130)]
     g = torch.Generator(device=dev).manual_seed(0)
 
     def rand_pot(R1, R2, C, dtype, as_handed=True):
@@ -606,10 +1168,10 @@ def main() -> int:
                               device=dev).to(dtype).permute(1, 0, 2)
         return torch.rand((R1, R2, C), generator=g, device=dev).to(dtype)
 
-    # per dtype, summed over one big-clique step's launches
-    totals = {bf16: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                         bound_ops_ms=0.0, max_abs_err=0.0)
-              for bf16 in (False, True)}
+    # per dtype and path, summed over the launches of one call of the path
+    totals = {(bf16, k): dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
+                              bound_ms=0.0, bound_ops_ms=0.0, max_abs_err=0.0)
+              for bf16 in (False, True) for k in path_shapes}
     for shape in list(per_call) + edge_shapes:
         R1, R2, C, Bk = shape
         serving = shape in per_call
@@ -646,19 +1208,20 @@ def main() -> int:
                     host_us_per_call=host_us(
                         lambda: fc.factored_masked_contract(pot, w1, w2)),
                     calls_per_step=per_call[shape])
-                n, tot = per_call[shape], totals[bf16]
-                tot["ms"] += k * n
-                tot["plain_ms"] += p * n
-                tot["library_ms"] += lib * n
-                tot["bound_ms"] += bound * n
-                tot["bound_ops_ms"] += bound * n * (by == "operations")
-                tot["max_abs_err"] = max(tot["max_abs_err"], abs_err)
+                for path, n in per_call[shape].items():
+                    tot = totals[bf16, path]
+                    tot["ms"] += k * n
+                    tot["plain_ms"] += p * n
+                    tot["library_ms"] += lib * n
+                    tot["bound_ms"] += bound * n
+                    tot["bound_ops_ms"] += bound * n * (by == "operations")
+                    tot["max_abs_err"] = max(tot["max_abs_err"], abs_err)
             emit(line)
 
     # the serving floor 1e-38 is subnormal in f32 and bf16: it must not be
     # flushed, and exact zeros must stay exact zeros
     for dtype in (torch.float32, torch.bfloat16):
-        R1, R2, C, Bk = next(iter(per_call))
+        R1, R2, C, Bk = main_shapes[0]
         pot = (rand_pot(R1, R2, C, torch.float32) + 0.5).to(dtype)
         w1 = torch.ones((Bk, R1), device=dev, dtype=dtype)
         w2 = torch.rand((Bk, R2), generator=g, device=dev).to(dtype)
@@ -711,6 +1274,7 @@ def main() -> int:
     launches_bf16 = phase_bf16(dev, tree, values, masks, post, logz,
                                t_big, peak_big, len(main_shapes), profile)
     del eng, post
+    big = dict(tree=tree, values=values, masks=masks, names=names)
 
     # -- 5. classic-network serving (hailfinder_like, einsum route) ----------
     factors, sizes, values = hailfinder_like(seed=0)
@@ -761,16 +1325,28 @@ def main() -> int:
 
     # -- 6. the rest of the serving path ------------------------------------
     phase_log(dev, tree, values, masks, post, logz)
-    del post
     torch.cuda.empty_cache()
-    phase_chain(dev, profile)
+    hail = dict(tree=tree, values=values, masks=masks, eng=eng, post=post,
+                B=Bh, peak=peak)
+    chain = phase_chain(dev, profile)
     grid = phase_fused(dev, profile)
     phase_chunked(dev, eng, plan, grid)
-    del eng, grid
 
-    # -- 7. kernel table, card, result --------------------------------------
-    # the kernel once per dtype it serves; launches are those of that
-    # dtype's serving phase, times are sums over one big-clique step
+    # -- 7. the query surfaces beyond posteriors ------------------------------
+    phase_map(dev, hail, chain, grid, profile)
+    del chain, grid, post
+    hail["post"] = None
+    torch.cuda.empty_cache()
+    path_launches = phase_entropy_joint(dev, big, hail, path_shapes, profile)
+    path_launches[TAILED_PATH] = phase_incremental(dev, hail, tailed)
+    del tailed
+    phase_surgery(dev, big, hail)
+    del eng, hail, big
+
+    # -- 8. kernel table, card, result --------------------------------------
+    # the kernel once per dtype and path it serves; launches are those of
+    # that path's serving phase, times are sums over one call of the path
+    path_launches["posterior_batch"] = launches
     emit({"kernels": [{
         "name": "factored_masked_contract"
                 + (" (bfloat16 inputs)" if bf16 else " (float32)"),
@@ -783,10 +1359,14 @@ def main() -> int:
         "bound_by": "operations"
                     if tot["bound_ops_ms"] * 2 > tot["bound_ms"] else "bytes",
         "library_ms": tot["library_ms"],
-        "per": "one big-clique step (%d launches), %s" % (
+        "per": "%s (%d launches), %s" % (
+            "a session opened and one delta, " + path if path == TAILED_PATH
+            else "one %s call on the big clique" % path,
             n_launched, "bfloat16 storage" if bf16 else "float32"),
-    } for bf16, n_launched, tot in (
-        (False, launches, totals[False]), (True, launches_bf16, totals[True]))]})
+    } for bf16, path, n_launched, tot in (
+        [(False, k, path_launches[k], totals[False, k]) for k in path_shapes]
+        + [(True, "posterior_batch", launches_bf16,
+            totals[True, "posterior_batch"])])]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -21,6 +21,12 @@ Quick start:
 ``tree.engine("log_sum_exp")`` and ``tree.engine("max_product")`` serve in
 log space; ``dtype=torch.bfloat16`` stores the sum-product serving program
 in bfloat16; ``posterior_batch(..., chunk=N)`` bounds the step's memory.
+
+Beyond posteriors the engine answers ``map_assignment(_batch)`` and
+``top_k_assignments(_batch)``, ``entropy(_batch)``,
+``joint_marginal(_batch)`` and ``mutual_information``; ``incremental``
+opens a cached-collect session; ``multiply_factor`` edits a live engine and
+``save`` / ``load`` checkpoint it (``surgery`` edits compiled plans).
 """
 
 from .api import CliqueGraph, FactorGraph, JunctionTree, create_junction_tree
@@ -29,9 +35,12 @@ from .convert import (
     chain_stack_from_numpy,
     engine_from_numpy,
     fused_stacks_from_numpy,
+    session_from_numpy,
 )
 from .evidence import batch_masks, batch_masks_sparse, random_evidence_batch
 from .executor import Engine, batched_propagate_program, evidence_to_masks
+from .incremental import IncrementalSession
+from .joint import mutual_information_from_joint, steiner_subtree
 from .ops.factored_contract import (
     big_clique_sep_message,
     factored_masked_contract,
@@ -39,6 +48,14 @@ from .ops.factored_contract import (
 )
 from .ops.semirings import LOG_SUM_EXP, MAX_PRODUCT, SEMIRINGS, SUM_PRODUCT
 from .schedule import Plan, compile_plan, load_plan, plan_from_json
+from .surgery import (
+    add_factor,
+    change_root,
+    insert_sepset,
+    merge_plans,
+    merge_trees,
+    remove_factor,
+)
 
 __version__ = "0.1.0"
 
@@ -57,6 +74,16 @@ __all__ = [
     "engine_from_numpy",
     "chain_stack_from_numpy",
     "fused_stacks_from_numpy",
+    "session_from_numpy",
+    "IncrementalSession",
+    "steiner_subtree",
+    "mutual_information_from_joint",
+    "add_factor",
+    "remove_factor",
+    "merge_plans",
+    "merge_trees",
+    "change_root",
+    "insert_sepset",
     "batch_masks",
     "batch_masks_sparse",
     "random_evidence_batch",

@@ -92,6 +92,39 @@ class JunctionTree:
     def stats(self) -> dict:
         return self._plan.stats()
 
+    # ---- incremental surgery on the compiled plan (see surgery.py) ----
+    def _rewrap(self, plan: Plan) -> "JunctionTree":
+        fg = FactorGraph(
+            [plan.table.labels_of(f) for f in plan.factors],
+            {plan.table.label_of(v): plan.sizes[v] for v in range(plan.num_vars)},
+        )
+        return JunctionTree(CliqueGraph(fg, plan), plan)
+
+    def add_factor(self, scope, sizes: Optional[Dict] = None) -> "JunctionTree":
+        """New JunctionTree with one more factor (appended last in the
+        ``propagate`` values order).  Scopes covered by an existing clique
+        attach without retriangulation; anything else recompiles (new
+        variables need ``sizes``)."""
+        from .surgery import add_factor as _add
+
+        plan, _ = _add(self._plan, scope, sizes=sizes)
+        return self._rewrap(plan)
+
+    def remove_factor(self, factor_ix: int) -> "JunctionTree":
+        """New JunctionTree without factor ``factor_ix`` (always O(1); the
+        tree is reused, see ``surgery.remove_factor``)."""
+        from .surgery import remove_factor as _rm
+
+        return self._rewrap(_rm(self._plan, factor_ix))
+
+    def merge(self, other: "JunctionTree") -> "JunctionTree":
+        """Merge with another compiled tree over disjoint variables into one
+        forest (joined by an empty separator; factor order = self ++ other).
+        No retriangulation, see ``surgery.merge_plans``."""
+        from .surgery import merge_plans
+
+        return self._rewrap(merge_plans(self._plan, other._plan))
+
     def engine(
         self,
         semiring: str = "sum_product",

@@ -6,7 +6,10 @@ in the engine's semiring space) are all an engine needs: with them the port
 serves the same tree with the same numbers, without re-triangulating or
 re-evaluating factors.  This is the port's counterpart of carrying trained
 weights over.  The stacked forms that the chain and level-fused programs
-read are functions of the same arrays.
+read are functions of the same arrays.  A max-product engine takes its
+potentials in log space (``semiring=MAX_PRODUCT``), as the JAX engine's MAP
+sibling holds them; an incremental session takes its cached collect
+messages and their rescale offsets (:func:`session_from_numpy`).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from .executor import Engine
+from .incremental import IncrementalSession
 from .fused import build_fused_schedule, stack_group_potentials
 from .ops.semirings import SUM_PRODUCT, Semiring
 from .scan_executor import ChainLayout, stack_chain_potentials
@@ -58,3 +62,20 @@ def fused_stacks_from_numpy(
     reads, from the clique potentials."""
     sched, _ = build_fused_schedule(plan_from_json(plan_json))
     return stack_group_potentials(sched, clique_pots)
+
+
+def session_from_numpy(
+    engine: Engine, mask_batch, ups: Sequence, offs: Sequence
+) -> IncrementalSession:
+    """An :class:`IncrementalSession` on ``engine`` under the base evidence
+    ``mask_batch`` whose cached collect state is given, not computed:
+    ``ups[c]`` is clique c's rescaled upward message (``None`` at the root),
+    ``offs[c]`` the log of its rescale factor, as numpy arrays in the plan's
+    axis order (what the JAX session holds in ``_ups`` and ``_offs``)."""
+    return IncrementalSession(
+        engine, mask_batch,
+        cached=(
+            [None if u is None else engine._place(np.array(u)) for u in ups],
+            [None if o is None else engine._place(np.array(o)) for o in offs],
+        ),
+    )

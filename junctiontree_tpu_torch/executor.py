@@ -446,6 +446,20 @@ def routed_contract(plan, semiring, ops, ovs, outv, *, min_states):
     return _bcontract(semiring, ops, ovs, outv)
 
 
+def make_contract(plan, semiring):
+    """Routed-contraction closure with the current config's threshold:
+    ``contract(ops, ovs, outv) -> (result, batched)``.  The lightweight face
+    of ``BatchedProgramBuilder._contract`` for program builders that only
+    need contractions, not a step schedule (``incremental.py``'s collect and
+    delta programs)."""
+    from functools import partial
+
+    return partial(
+        routed_contract, plan, semiring,
+        min_states=_CFG.big_clique_min_states,
+    )
+
+
 def divide_project(
     semiring: Semiring,
     belief: torch.Tensor,
@@ -497,6 +511,15 @@ def divide_project(
 _PROG_TINY = 1e-38
 
 
+def clique_mask_vars(plan: Plan, observed: Sequence[int]) -> List[List[int]]:
+    """Per clique, the observed variables whose mask it absorbs (each
+    variable's mask goes to the one clique ``plan.var_to_clique`` names)."""
+    out: List[List[int]] = [[] for _ in range(plan.tree.num_cliques)]
+    for v in observed:
+        out[plan.var_to_clique[v]].append(v)
+    return out
+
+
 class BatchedProgramBuilder:
     """Step-structured construction of the batch-aware propagate program.
 
@@ -542,10 +565,7 @@ class BatchedProgramBuilder:
             observed = list(range(plan.num_vars))
         self.observed = list(observed)
         self.mask_slot = {v: i for i, v in enumerate(self.observed)}
-        cmv: List[List[int]] = [[] for _ in range(tree.num_cliques)]
-        for v in self.observed:
-            cmv[plan.var_to_clique[v]].append(v)
-        self.clique_mask_vars = cmv
+        self.clique_mask_vars = clique_mask_vars(plan, self.observed)
         self.min_states = _CFG.big_clique_min_states
         self.divide_ok = _CFG.distribute_division and semiring in (
             SUM_PRODUCT, LOG_SUM_EXP
@@ -753,27 +773,102 @@ class BatchedProgramBuilder:
         else:  # pragma: no cover
             raise AssertionError(kind)
 
+    def run(self, pots, masks, kinds=None) -> Dict[tuple, torch.Tensor]:
+        """Run the schedule (only the steps whose kind is in ``kinds``, when
+        given) and return the named tensors: ``("up", c)``, ``("down", c)``,
+        ``("marg", v)``, ``("z",)``.  The message steps alone
+        (``kinds=("up", "down", "z")``) are what the entropy and joint
+        programs build on."""
+        st: Dict[tuple, torch.Tensor] = {}
+        B = masks[0].shape[0] if masks else 1
+        storage = pots[0].dtype
+        if self.rescale:
+            st[("logoff",)] = torch.zeros(
+                (),
+                dtype=torch.float32 if storage in _LOW_PRECISION else storage,
+                device=pots[0].device,
+            )
+        for s in self.steps:
+            if kinds is None or s[0] in kinds:
+                self._run_step(s, st, pots, masks, B, storage)
+        return st
+
     def full(self):
         """``fn(pots, masks) -> (marginals list, z [B])``: marginals and z
         in semiring space; with ``rescale`` the marginals are unnormalized
         but bounded and z is logZ."""
 
         def fn(pots: Sequence[torch.Tensor], masks: Sequence[torch.Tensor]):
-            st: Dict[tuple, torch.Tensor] = {}
-            B = masks[0].shape[0] if masks else 1
-            storage = pots[0].dtype
-            if self.rescale:
-                st[("logoff",)] = torch.zeros(
-                    (),
-                    dtype=torch.float32 if storage in _LOW_PRECISION else storage,
-                    device=pots[0].device,
-                )
-            for s in self.steps:
-                self._run_step(s, st, pots, masks, B, storage)
+            st = self.run(pots, masks)
             margs = [st[("marg", v)] for v in range(self.plan.num_vars)]
             return margs, st[("z",)]
 
         return fn
+
+
+def _xlogx(x: torch.Tensor) -> torch.Tensor:
+    """x log x, 0 at 0 (never 0 * -inf)."""
+    return torch.where(x > 0, x * torch.log(x.clamp_min(_PROG_TINY)), 0.0)
+
+
+def batched_entropy_program(plan: Plan, observed: Optional[Sequence[int]] = None):
+    """Build ``fn(pots, masks) -> (entropies [B], Z [B] linear)``: the
+    batch-aware posterior-entropy program (linear sum_product, rescaled).
+
+    H(P) = sum_C H(b_C) - sum_S H(b_S) on the calibrated tree.  The routed
+    batch-aware up/down message program runs ONCE, and each belief entropy
+    is computed WITHOUT materializing the belief: with b = prod_i op_i,
+
+        sum_x b log b = sum_i contract(ops with op_i -> op_i*log(op_i))
+
+    so every term is a routed contraction to a scalar per element (on a big
+    clique: the factored big-clique contraction with C = 1, once per
+    operand and once more for the plain sum), and H(b) = log S1 - S2/S1
+    with S1 = contract(ops -> []).  Per-element message rescaling only
+    scales b by a per-element constant, which cancels in H (entropy of the
+    NORMALIZED belief).  Structural zeros are safe: op*log(op) is 0 at 0
+    and every other factor is finite.
+
+    Impossible evidence yields H = 0 and Z = 0 for that element."""
+    builder = BatchedProgramBuilder(plan, SUM_PRODUCT, observed, rescale=True)
+    tree = plan.tree
+
+    def fn(pots, masks):
+        B = int(masks[0].shape[0]) if masks else 1
+        st = builder.run(pots, masks, kinds=("up", "down", "z"))
+
+        def H(ops, ovs):
+            s1, b1 = builder._contract(ops, ovs, [])
+            s2 = None
+            for i in range(len(ops)):
+                ops_i = list(ops)
+                ops_i[i] = _xlogx(ops[i])
+                t, _ = builder._contract(ops_i, ovs, [])
+                s2 = t if s2 is None else s2 + t
+            pos = s1 > 0
+            h = torch.where(
+                pos,
+                torch.log(s1.clamp_min(_PROG_TINY)) - s2 / torch.where(pos, s1, 1.0),
+                0.0,
+            )
+            return h if b1 else h.reshape(()).expand(B)
+
+        ent = None
+        for c in range(tree.num_cliques):
+            h = H(*builder._node_ops(c, st, pots, masks))
+            ent = h if ent is None else ent + h
+        for c in range(tree.num_cliques):
+            if c == tree.root:
+                continue
+            ent = ent - H(
+                [st[("up", c)], st[("down", c)]],
+                [builder._upv(c), builder._downv(c)],
+            )
+        logz = st[("z",)]
+        fin = torch.isfinite(logz)
+        return torch.where(fin, ent, 0.0), torch.where(fin, torch.exp(logz), 0.0)
+
+    return fn
 
 
 def batched_propagate_program(
@@ -835,7 +930,12 @@ class Engine:
 
     ``set_potentials`` precomputes clique potentials once; ``query``,
     ``query_batch`` and ``posterior_batch`` then serve evidence against
-    them.  ``semiring`` is ``SUM_PRODUCT``, ``LOG_SUM_EXP`` or
+    them, and so do the other query surfaces: ``map_assignment(_batch)`` and
+    ``top_k_assignments(_batch)`` (exact MAP and k-best), ``entropy(_batch)``,
+    ``joint_marginal(_batch)`` and ``mutual_information``, and
+    ``incremental`` (a cached-collect session).  ``multiply_factor`` edits
+    the standing potentials of a live engine; ``save`` / ``load`` checkpoint
+    it.  ``semiring`` is ``SUM_PRODUCT``, ``LOG_SUM_EXP`` or
     ``MAX_PRODUCT``.  ``device`` places the potentials, masks and messages
     (default CUDA device 0; pass ``device="cpu"`` to run on the CPU).
 
@@ -880,6 +980,7 @@ class Engine:
         self._chain_A: Optional[torch.Tensor] = None   # stacked transitions
         self._fused_sched = None              # lazy fused schedule
         self._fused_stack = None              # stacked fused group potentials
+        self._max_engine: Optional["Engine"] = None   # cached MAP sibling
 
     def _place(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=self.compute_dtype, device=self.device)
@@ -943,6 +1044,7 @@ class Engine:
         self._pots_prog = None
         self._chain_A = None
         self._fused_stack = None
+        self._max_engine = None
         return self
 
     def _require_pots(self) -> List[torch.Tensor]:
@@ -960,6 +1062,131 @@ class Engine:
         if self._pots_prog is None:
             self._pots_prog = [p.to(storage) for p in pots]
         return self._pots_prog
+
+    def _require_pots_np(self) -> List[np.ndarray]:
+        if self._pots_np is None:
+            raise RuntimeError("call set_potentials(values) before querying")
+        return self._pots_np
+
+    def multiply_factor(self, scope, value) -> "Engine":
+        """Bake a new factor into the standing potentials of a LIVE engine
+        (the serving-side face of a covered ``surgery.add_factor``):
+        ``scope`` must be covered by an existing clique, so every potential
+        keeps its shape and every cached program stays valid -- only the
+        clique's numbers change.
+
+        ``value`` is a linear-space array shaped like ``scope`` (converted
+        to the engine's semiring space internally).  The factor is
+        multiplied into the smallest containing clique's potential;
+        subsequent queries see the updated model immediately.  Everything
+        derived from the potentials (the chain and fused stacks, the
+        max-product sibling, the program's storage copy) is rebuilt at next
+        use.  Note this edits the *potentials*, not the factor list:
+        ``propagate(values)`` still expects the original factors (use
+        ``surgery.add_factor`` and a new Engine for that path).  Raises
+        ValueError for uncovered scopes."""
+        plan = self.plan
+        pots = list(self._require_pots_np())
+        labels = list(scope)
+        unknown = [v for v in labels if v not in plan.table]
+        if unknown:
+            raise ValueError(
+                "multiply_factor scope has unknown variables %r" % (unknown,)
+            )
+        ids = [plan.table.id_of(v) for v in labels]
+        idset = set(ids)
+        val = np.asarray(value, dtype=np.float64)
+        if val.shape != tuple(plan.sizes[v] for v in ids):
+            raise ValueError(
+                "value shape %r does not match scope %r sizes %r"
+                % (val.shape, labels, tuple(plan.sizes[v] for v in ids))
+            )
+        ci, ci_states = -1, None
+        for c, cv in enumerate(plan.tri.maxcliques):
+            if idset <= set(cv):
+                states = _vars_states(plan.sizes, cv)
+                if ci_states is None or states < ci_states:
+                    ci, ci_states = c, states
+        if ci < 0:  # empty scopes always match (smallest clique)
+            raise ValueError(
+                "scope %r is not covered by any clique; rebuild via "
+                "surgery.add_factor instead" % (labels,)
+            )
+        cv = plan.tri.maxcliques[ci]
+        # broadcast value into the clique's axis order
+        order = sorted(range(len(ids)), key=lambda i: cv.index(ids[i]))
+        val_b = np.transpose(val, order).reshape(
+            tuple(plan.sizes[v] if v in idset else 1 for v in cv)
+        )
+        if self.semiring.is_log:
+            with np.errstate(divide="ignore"):
+                pots[ci] = pots[ci] + np.log(val_b)
+        else:
+            pots[ci] = pots[ci] * val_b
+        return self.set_clique_potentials(pots)
+
+    # -- checkpoint and resume of the full serving state --
+    def save(self, path: str) -> None:
+        """Write plan + evaluated clique potentials + semiring to one .npz
+        (``__plan__``, ``__semiring__``, ``pot_i``: the JAX package's
+        ``Engine.save`` layout, so either package loads the other's file).
+        The potentials saved are the host arrays in the semiring's space as
+        ``set_potentials`` evaluated them, also on a bfloat16 engine."""
+        if self._pots_np is None:
+            raise RuntimeError("call set_potentials(values) before save()")
+        arrs = {f"pot_{i}": p for i, p in enumerate(self._pots_np)}
+        np.savez_compressed(
+            path,
+            __plan__=np.frombuffer(
+                self.plan.to_json().encode("utf-8"), dtype=np.uint8
+            ),
+            __semiring__=np.array(self.semiring.name),
+            **arrs,
+        )
+
+    @classmethod
+    def load(
+        cls, path: str, device=None, dtype: Optional[torch.dtype] = None
+    ) -> "Engine":
+        """Restore an engine checkpointed with ``save`` (plan, potentials,
+        semiring) on ``device`` (default CUDA device 0): ready to query
+        immediately, without re-triangulating or re-evaluating.  ``dtype``
+        is ``Engine``'s (the file holds the host potentials, not a dtype)."""
+        from .schedule import plan_from_json
+
+        device = resolve_device(device)
+        with np.load(path, allow_pickle=False) as d:
+            plan = plan_from_json(bytes(d["__plan__"].tobytes()).decode("utf-8"))
+            semiring = SEMIRINGS[str(d["__semiring__"])]
+            pots = [
+                np.asarray(d[f"pot_{i}"]) for i in range(plan.tri.num_cliques)
+            ]
+        return cls(
+            plan, semiring, device=device, dtype=dtype
+        ).set_clique_potentials(pots)
+
+    def describe(self) -> dict:
+        """Introspection: plan stats, which execution tiers are engaged and
+        the big-clique kernel's launch counters (process-wide, like the
+        phase timers)."""
+        from .ops.factored_contract import factored_masked_contract
+        from .utils.timing import TIMERS
+
+        st = self.plan.stats()
+        st["semiring"] = self.semiring.name
+        st["device"] = str(self.device)
+        st["dtype"] = str(self.dtype).split(".")[-1]
+        st["potentials_set"] = self._pots is not None
+        st["chain_layout"] = self._chain_layout() is not None
+        st["cached_programs"] = sorted(str(k[0]) for k in self._programs)
+        st["process_phase_totals_s"] = TIMERS.report()
+        st["kernel_launches"] = {
+            "factored_masked_contract": factored_masked_contract.launches,
+            "factored_masked_contract_bf16":
+                factored_masked_contract.launches_bf16,
+            "big_clique_route_calls": big_clique_sep_message.calls,
+        }
+        return st
 
     def __repr__(self) -> str:
         st = self.plan.stats()
@@ -1191,3 +1418,472 @@ class Engine:
                 out[rows] = p
             logz[rows] = logz_c
         return posts, logz
+
+    # -- entropy, joint marginals, mutual information --
+    def _require_probability_semiring(self, what: str) -> None:
+        if self.semiring not in (SUM_PRODUCT, LOG_SUM_EXP):
+            raise ValueError(
+                "%s needs a probability semiring "
+                "(sum_product or log_sum_exp), not %r"
+                % (what, self.semiring.name)
+            )
+
+    def _calibrate(self, pots, masks):
+        """Per-element form: masks applied to the potentials, two-pass
+        propagation; (clique beliefs, separator beliefs, Z) in the
+        semiring's space."""
+        sr = self.semiring
+        mpots = apply_masks(self.plan, pots, masks, sr)
+        cb, sb = propagate_cliques(self.plan, mpots, sr)
+        return cb, sb, partition(self.plan, cb, sr)
+
+    def _entropy_element(self, pots, masks):
+        """(H, Z in the semiring's space) of one evidence row from the
+        calibrated beliefs: H(P) = sum_C H(b_C) - sum_S H(b_S)."""
+        sr = self.semiring
+        cb, sb, z = self._calibrate(pots, masks)
+
+        def H(b):
+            flat = b.reshape(-1)
+            if sr.is_log:
+                lp = flat - torch.logsumexp(flat, dim=0)
+                p = torch.exp(lp)
+            else:
+                p = flat / flat.sum().clamp_min(_PROG_TINY)
+                lp = torch.log(p.clamp_min(_PROG_TINY))
+            return -torch.where(p > 0, p * lp, 0.0).sum()
+
+        ent = H(cb[0])
+        for b in cb[1:]:
+            ent = ent + H(b)
+        for b in sb:
+            ent = ent - H(b)
+        return ent, z
+
+    def entropy(
+        self, evidence: Optional[Dict[Hashable, int]] = None
+    ) -> Tuple[float, float]:
+        """Exact Shannon entropy (nats) of the posterior joint distribution
+        given the evidence, plus P(evidence).
+
+        Calibrated-tree identity: P(x) = prod_C b_C(x_C) / prod_S b_S(x_S),
+        so H(P) = sum_C H(b_C) - sum_S H(b_S) with normalized clique /
+        separator beliefs -- O(total clique states), never enumerating the
+        joint."""
+        self._require_probability_semiring("entropy")
+        pots = self._require_pots()
+        masks = evidence_to_masks(self.plan, evidence or {}, self.semiring)
+        ent, z = self._entropy_element(pots, [self._place(m) for m in masks])
+        return float(ent), float(self.semiring.to_linear(z))
+
+    def entropy_batch(self, mask_batch):
+        """Batched posterior joint entropies under an evidence-mask batch.
+
+        ``mask_batch``: dict {var label: [B, size_v]} masks in the engine's
+        semiring space (unobserved vars default to all-ones), or a full
+        per-var-id list.  Returns (entropies [B], Z [B]) tensors on the
+        engine's device in its compute dtype (float32 on a bfloat16
+        engine); Z is linear-space P(evidence) regardless of semiring.
+        Impossible evidence gives H = 0 and Z = 0.
+
+        A sum-product engine runs the batch-aware routed program
+        (``batched_entropy_program``) over only the observed variables; a
+        log-sum-exp engine runs the per-element form row by row under
+        ``torch.vmap`` (the operand-log decomposition needs linear
+        operands).  That form holds every clique's belief for every row at
+        once, several times B x (total clique states) elements: choose B
+        from the plan's ``total_clique_states`` and the device's memory."""
+        self._require_probability_semiring("entropy")
+        pots = self._require_pots()
+        ids, masks = self._masks_to_program_args(mask_batch)
+        if self.semiring == SUM_PRODUCT:
+            key = ("entropy_batch", ids)
+            fn = self._programs.get(key)
+            if fn is None:
+                fn = batched_entropy_program(self.plan, list(ids))
+                self._programs[key] = fn
+            return fn(pots, masks)
+        B = int(masks[0].shape[0]) if masks else 1
+        by_id = dict(zip(ids, masks))
+        full = [
+            by_id[v] if v in by_id else torch.full(
+                (B, self.plan.sizes[v]), self.semiring.one,
+                dtype=self.compute_dtype, device=self.device,
+            )
+            for v in range(self.plan.num_vars)
+        ]
+        ent, z = torch.vmap(
+            lambda ms: self._entropy_element(pots, ms)
+        )(full)
+        return ent, self.semiring.to_linear(z)
+
+    def _joint_query_ids(self, variables) -> List[int]:
+        self._require_probability_semiring("joint_marginal")
+        variables = list(variables)
+        if len(set(variables)) != len(variables):
+            raise ValueError("variables contains duplicates")
+        return [self.plan.table.id_of(v) for v in variables]
+
+    def joint_marginal(
+        self,
+        variables: Sequence[Hashable],
+        evidence: Optional[Dict[Hashable, int]] = None,
+        normalize: bool = True,
+        max_states: int = 1 << 24,
+    ):
+        """Exact joint marginal over an ARBITRARY variable set (the
+        variables need not share a clique or even a connected component).
+
+        Returns (table, P(evidence)): ``table`` is a linear-space float64
+        numpy array with one axis per entry of ``variables`` (in that
+        order), normalized to sum to 1 when ``normalize`` (the conditional
+        joint P(variables | evidence)).
+
+        Out-of-clique queries eliminate along the minimal subtree of
+        calibrated cliques spanning the variables (``joint.py``).
+        Intermediates are capped at ``max_states`` states (ValueError
+        beyond: query fewer/closer variables or raise the cap)."""
+        from .joint import joint_marginal_program
+
+        qids = self._joint_query_ids(variables)
+        pots = self._require_pots()
+        sr = self.semiring
+        key = ("joint", tuple(qids), int(max_states))
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = joint_marginal_program(
+                self.plan, sr, qids, max_states=max_states
+            )
+            self._programs[key] = prog
+        masks = evidence_to_masks(self.plan, evidence or {}, sr)
+        cb, sb, z = self._calibrate(pots, [self._place(m) for m in masks])
+        joint = prog(cb, sb).double().cpu().numpy()
+        zlin = float(sr.to_linear(z))
+        if sr.is_log:
+            m = joint.max()
+            if not np.isfinite(m):  # impossible evidence: all -inf
+                return np.zeros_like(joint), zlin
+            t = np.exp(joint - m)  # stabilized: max entry is exactly 1
+            if normalize:
+                # the exp(m) factor cancels in the ratio, so never form it:
+                # it under- or overflows exactly when stabilization matters
+                return t / t.sum(), zlin
+            joint = t * np.exp(m)
+        elif normalize:
+            tot = joint.sum()
+            joint = joint / tot if tot > 0 else joint
+        return joint, zlin
+
+    def joint_marginal_batch(
+        self, variables: Sequence[Hashable], mask_batch,
+        max_states: int = 1 << 24,
+    ):
+        """Batched exact joint marginals over an arbitrary variable set.
+
+        ``mask_batch``: dict {var label: [B, size_v]} masks in the engine's
+        semiring space (unobserved vars default to all-ones), or a full
+        per-var-id list.  Returns (tables [B, *sizes(variables)] linear
+        NORMALIZED, Z [B] linear) tensors on the engine's device in its
+        compute dtype: the per-element conditional joints
+        P(variables | evidence_b).
+
+        Runs the batch-aware routed message program once and eliminates the
+        Steiner subtree with batch-labelled routed contractions
+        (``joint.batched_joint_marginal_program``): no per-element clique
+        beliefs materialize.  Impossible evidence yields an all-zero table
+        and Z = 0 for that element."""
+        from .joint import batched_joint_marginal_program
+
+        qids = self._joint_query_ids(variables)
+        pots = self._require_pots()
+        ids, masks = self._masks_to_program_args(mask_batch)
+        key = ("joint_batch", tuple(qids), ids, int(max_states))
+        fn = self._programs.get(key)
+        if fn is None:
+            fn = batched_joint_marginal_program(
+                self.plan, self.semiring, qids, max_states=max_states,
+                observed=list(ids),
+            )
+            self._programs[key] = fn
+        return fn(pots, masks)
+
+    def mutual_information(
+        self,
+        x: Hashable,
+        y: Hashable,
+        evidence: Optional[Dict[Hashable, int]] = None,
+    ) -> float:
+        """Exact I(X;Y | evidence) in nats from the pairwise joint."""
+        from .joint import mutual_information_from_joint
+
+        joint, _ = self.joint_marginal([x, y], evidence)
+        return mutual_information_from_joint(joint)
+
+    # -- MAP and k-best decoding --
+    def _max_delegate(self) -> "Engine":
+        """Cached max-product sibling engine for MAP queries from non-MAP
+        engines, on the same device.  Linear potentials go to log space on
+        the host in float64 (floored at 1e-300, which float32 cannot hold)
+        before they are cast to the compute dtype."""
+        pots = self._require_pots_np()
+        if self._max_engine is None:
+            if not self.semiring.is_log:
+                pots = [
+                    np.log(np.maximum(np.asarray(p, dtype=np.float64), 1e-300))
+                    for p in pots
+                ]
+            self._max_engine = Engine(
+                self.plan, MAX_PRODUCT, device=self.device,
+                dtype=self.compute_dtype,
+            ).set_clique_potentials(pots)
+        return self._max_engine
+
+    def _evidence_log_masks(self, evidence) -> Dict[Hashable, np.ndarray]:
+        """{label: [1, size_v] log-space mask} of one evidence dict."""
+        masks = {}
+        for label, state in (evidence or {}).items():
+            v = self.plan.table.id_of(label)
+            mk = np.full((1, self.plan.sizes[v]), -np.inf, dtype=np.float32)
+            mk[0, int(state)] = 0.0
+            masks[label] = mk
+        return masks
+
+    def _log_mask_args(self, mask_batch):
+        """(sorted var ids, placed [B, size_v] log masks) of a label-keyed
+        mask dict; with no evidence, one all-zeros row on variable 0 so
+        that the programs know B."""
+        by_id = {
+            self.plan.table.id_of(k): self._place(v)
+            for k, v in mask_batch.items()
+        }
+        if not by_id:
+            by_id[0] = torch.zeros(
+                (1, self.plan.sizes[0]), dtype=self.compute_dtype,
+                device=self.device,
+            )
+        ids = tuple(sorted(by_id))
+        return ids, [by_id[v] for v in ids]
+
+    def _chain_log_A(self) -> torch.Tensor:
+        """The [m, K, K] log-transition stack of a max-product chain engine
+        (its potentials are log-space already)."""
+        if self._chain_A is None:
+            from .scan_executor import stack_chain_potentials
+
+            self._chain_A = self._place(
+                stack_chain_potentials(self._chain_layout(), self._pots_np)
+            )
+        return self._chain_A
+
+    def _map_program(self, ids: tuple):
+        """``run(masks) -> (assign, score)``: the Viterbi loop on a uniform
+        chain, else the tree-MAP program."""
+        layout = self._chain_layout()
+        if layout is not None:
+            from .scan_executor import chain_viterbi_program
+
+            prog = self._programs.get(("viterbi",))
+            if prog is None:
+                prog = chain_viterbi_program(self.plan, layout)
+                self._programs[("viterbi",)] = prog
+            logA = self._chain_log_A()
+            return lambda masks: prog(logA, dict(zip(ids, masks)))
+        from .map_executor import tree_map_program
+
+        key = ("tree_map", ids)
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = tree_map_program(self.plan, list(ids))
+            self._programs[key] = prog
+        pots = self._require_pots()
+        return lambda masks: prog(pots, masks)
+
+    def _labelled(self, row) -> Dict[Hashable, int]:
+        return {
+            self.plan.table.label_of(v): int(row[v])
+            for v in range(self.plan.num_vars)
+        }
+
+    def map_assignment(
+        self, evidence: Optional[Dict[Hashable, int]] = None
+    ) -> Tuple[Dict[Hashable, int], float]:
+        """MAP query: most probable joint assignment consistent with the
+        evidence, via max-product message passing.
+
+        Returns ({var label: state}, log of the unnormalized joint at the
+        assignment).  Chain plans use the Viterbi loop; general trees use
+        max-product with argmax backpointers + traceback
+        (``map_executor.tree_map_program``), which picks a consistent joint
+        argmax by construction -- ties are harmless.  A score below -1e29
+        means that no assignment is consistent with the evidence."""
+        if self.semiring != MAX_PRODUCT:
+            return self._max_delegate().map_assignment(evidence)
+        assign, score = self.map_assignment_batch(
+            self._evidence_log_masks(evidence)
+        )
+        return self._labelled(assign[0].cpu().numpy()), float(score[0])
+
+    def map_assignment_batch(self, mask_batch, chunk: Optional[int] = None):
+        """Batched MAP queries: exact max-product with backpointer traceback
+        over the whole evidence batch -- chain plans use the Viterbi loop,
+        general trees the tree-MAP program
+        (``map_executor.tree_map_program``).
+
+        ``mask_batch``: dict {var label: [B, size_v]} of LOG-space masks
+        (0 / -inf).  ``chunk``: serve a batch of more than ``chunk`` rows in
+        row slices of that many (the tree-MAP program materializes
+        [B, clique_states] score tensors for the backpointer argmax, so MAP
+        capacity is batch-bound like the posterior program's); rows are
+        independent, the last slice is simply shorter, and a chain still
+        takes the Viterbi loop.  Returns (assignments [B, num_vars]
+        ``torch.int32``, scores [B]) on the engine's device; a score below
+        -1e29 marks a row with no feasible assignment."""
+        if self.semiring != MAX_PRODUCT:
+            return self._max_delegate().map_assignment_batch(mask_batch, chunk)
+        if chunk is not None:
+            chunk = int(chunk)
+            if chunk < 1:
+                raise ValueError("chunk must be >= 1")
+        self._require_pots()
+        ids, masks = self._log_mask_args(mask_batch)
+        run = self._map_program(ids)
+        B = int(masks[0].shape[0])
+        if chunk is None or B <= chunk:
+            return run(masks)
+        assign = torch.empty(
+            (B, self.plan.num_vars), dtype=torch.int32, device=self.device
+        )
+        score = torch.empty((B,), dtype=self.compute_dtype, device=self.device)
+        for lo in range(0, B, chunk):
+            rows = slice(lo, min(lo + chunk, B))
+            assign[rows], score[rows] = run([m[rows] for m in masks])
+        return assign, score
+
+    def top_k_assignments(
+        self,
+        evidence: Optional[Dict[Hashable, int]] = None,
+        k: int = 5,
+    ) -> List[Tuple[Dict[Hashable, int], float]]:
+        """The k most probable joint assignments under the evidence, best
+        first (exact k-best decoding on any junction tree).
+
+        Chain-structured plans use the list-Viterbi loop
+        (``scan_executor.chain_kbest_program``); general trees use
+        k-best-semiring message passing with backpointer traceback
+        (``map_executor.tree_kbest_program``).
+
+        Returns up to k ({var label: state}, log unnormalized joint) pairs:
+        fewer when the model has fewer than k feasible assignments."""
+        if self.semiring != MAX_PRODUCT:
+            return self._max_delegate().top_k_assignments(evidence, k)
+        from .scan_executor import _KBEST_PAD_FLOOR, chain_kbest_program
+
+        self._require_pots()
+        masks = self._evidence_log_masks(evidence)
+        layout = self._chain_layout()
+        if layout is None:
+            assign, scores = self.top_k_assignments_batch(masks, k)
+        else:
+            key = ("kbest", int(k))
+            prog = self._programs.get(key)
+            if prog is None:
+                prog = chain_kbest_program(self.plan, layout, int(k))
+                self._programs[key] = prog
+            ids, placed = self._log_mask_args(masks)
+            assign, scores = prog(self._chain_log_A(), dict(zip(ids, placed)))
+        assign = assign[0].cpu().numpy()   # [K, num_vars]
+        scores = scores[0].cpu().numpy()   # [K]
+        out = []
+        for r in range(assign.shape[0]):
+            if scores[r] < _KBEST_PAD_FLOOR:
+                break  # padding or an evidence-violating tail
+            out.append((self._labelled(assign[r]), float(scores[r])))
+        return out
+
+    def top_k_assignments_batch(self, mask_batch, k: int = 5):
+        """Batched exact k-best decoding on any junction tree.
+
+        ``mask_batch``: dict {var label: [B, size_v]} LOG-space masks
+        (0 / -inf).  Returns (assign [B, K, num_vars] ``torch.int32``,
+        scores [B, K] descending) on the engine's device with
+        K = min(k, total assignments): ranked DISTINCT joint assignments per
+        batch element.  Evidence-violating entries (score < -1e29) appear
+        only when fewer than K feasible assignments exist.
+
+        Routes through ``map_executor.tree_kbest_program`` (k-best-semiring
+        messages + traceback); works on chains too, though the unbatched
+        ``top_k_assignments`` prefers the chain loop there."""
+        from .map_executor import tree_kbest_program
+
+        if self.semiring != MAX_PRODUCT:
+            return self._max_delegate().top_k_assignments_batch(mask_batch, k)
+        pots = self._require_pots()
+        ids, masks = self._log_mask_args(mask_batch)
+        key = ("tree_kbest", ids, int(k))
+        fn = self._programs.get(key)
+        if fn is None:
+            fn = tree_kbest_program(self.plan, list(ids), int(k))
+            self._programs[key] = fn
+        return fn(pots, masks)
+
+    def score_assignment(self, assignment: Dict[Hashable, int]) -> float:
+        """log of the unnormalized joint value at a full assignment (on the
+        host, from the potentials as ``set_potentials`` evaluated them)."""
+        total = 0.0
+        for c, pot in enumerate(self._require_pots_np()):
+            idx = tuple(
+                int(assignment[self.plan.table.label_of(v)])
+                for v in self.plan.clique_vars[c]
+            )
+            val = float(pot[idx])
+            if self.semiring.is_log:
+                total += val
+            else:
+                if val <= 0.0:
+                    return -np.inf
+                total += float(np.log(val))
+        return total
+
+    def max_feasible_batch(
+        self, budget_bytes: int = 8 << 30, live_messages: int = 4,
+        analysis: Optional[dict] = None,
+    ) -> int:
+        """Largest power-of-two evidence batch that keeps batched message
+        traffic inside ``budget_bytes`` of device memory.
+
+        Every batched message materializes [B, sep_states] values in the
+        storage dtype; on models with huge separators the batch size -- not
+        the clique size -- is what overflows memory.  ``live_messages``
+        bounds how many such tensors are alive at once.
+
+        ``analysis``: optionally ``{"batch": B0, "temp_bytes": peak}`` from
+        a measured step at batch B0 (``torch.cuda.max_memory_allocated``
+        around one ``posterior_batch``) -- then the estimate starts from the
+        MEASURED peak and only extrapolates the marginal queries
+        analytically: B0 + (budget - peak) / per_query_bytes.
+        Returns at least 1."""
+        st = self.plan.stats()
+        itemsize = torch.empty((), dtype=self.storage_dtype()).element_size()
+        per_query = itemsize * max(st["max_sep_states"], 1) * live_messages
+        if analysis is not None:
+            headroom = budget_bytes - int(analysis["temp_bytes"])
+            if headroom < 0:
+                b = max(1, int(analysis["batch"]) // 2)
+            else:
+                b = int(analysis["batch"]) + int(headroom // per_query)
+        else:
+            b = max(1, int(budget_bytes // per_query))
+        b = max(1, b)
+        return 1 << (b.bit_length() - 1)
+
+    def incremental(self, mask_batch) -> "IncrementalSession":
+        """Open an incremental-evidence serving session: one collect pass is
+        cached, and subsequent single/few-variable evidence deltas reuse
+        every unaffected message -- O(tree depth) work per delta instead of
+        O(cliques) (``incremental.IncrementalSession``).
+
+        ``mask_batch``: dict {var label: [B, size_v] linear masks}, the
+        base evidence; unlisted variables are unobserved."""
+        from .incremental import IncrementalSession
+
+        return IncrementalSession(self, mask_batch)

@@ -12,6 +12,10 @@ pass, with per-step rescaling so everything stays in linear space
 
 PyTorch runs eagerly, so the two passes are Python loops over preallocated
 ``[m+1, B, K]`` stacks, a handful of small device operations per step.
+
+The same layout serves exact MAP (``chain_viterbi_program``) and k-best
+decoding (``chain_kbest_program``) in log space: a forward loop of maxima
+with backpointers written into a preallocated stack, then a traceback loop.
 """
 
 from __future__ import annotations
@@ -177,6 +181,118 @@ def chain_posterior_program(plan: Plan, layout: ChainLayout):
             torch.full_like(zfin, -float("inf")),
         ) + torch.log(scale).sum(dim=0)[:, 0]
         return post.div_(tot.clamp_min(_TINY)), logz
+
+    return fn
+
+
+def _stack_log_masks(layout: ChainLayout, logmasks, dtype, device):
+    """(LM [m+1, B, K] with zeros for unobserved positions, B)."""
+    m, K = len(layout.clique_order), layout.card
+    chain_pos = {v: k for k, v in enumerate(layout.var_order)}
+    B = next(iter(logmasks.values())).shape[0] if logmasks else 1
+    LM = torch.zeros((m + 1, B, K), dtype=dtype, device=device)
+    if logmasks:
+        at = torch.tensor(
+            [chain_pos[v] for v in logmasks], dtype=torch.long, device=device
+        )
+        LM[at] = torch.stack(
+            [torch.as_tensor(mk).to(dtype=dtype, device=device)
+             for mk in logmasks.values()]
+        )
+    return LM, B
+
+
+def _to_var_columns(layout: ChainLayout, chain_assign: torch.Tensor):
+    """[m+1, ...] states in chain order -> [..., m+1] int32 in var-id column
+    order."""
+    order = torch.as_tensor(
+        np.argsort(np.asarray(layout.var_order)), device=chain_assign.device
+    )
+    return chain_assign.movedim(0, -1)[..., order].to(torch.int32)
+
+
+def chain_viterbi_program(plan: Plan, layout: ChainLayout):
+    """Exact MAP decoding on a uniform chain: log-space max forward loop
+    with argmax bookkeeping, then a traceback loop (classic Viterbi), three
+    device operations per forward step and one per traceback step.
+
+    Returns ``fn(logA, logmasks) -> (assignment [B, m+1] int32, score [B])``
+    where ``logA`` is the [m, K, K] log-transition stack (log of
+    ``stack_chain_potentials``) and ``logmasks`` a dict var_id -> [B, K]
+    log-space mask (0 / -inf).  A row with no feasible path scores -inf."""
+    m = len(layout.clique_order)
+    K = layout.card
+
+    def fn(logA: torch.Tensor, logmasks: Dict[int, torch.Tensor]):
+        dtype, device = logA.dtype, logA.device
+        LM, B = _stack_log_masks(layout, logmasks, dtype, device)
+        ptrs = torch.empty((m, B, K), dtype=torch.int64, device=device)
+        V = torch.zeros((B, K), dtype=dtype, device=device)
+        Vbuf = torch.empty((2, B, K), dtype=dtype, device=device)
+        for k in range(m):
+            # scores[b, p, q] = V[b,p] + lm[b,p] + a[p,q]
+            scores = (V + LM[k]).unsqueeze(2) + logA[k]
+            V = Vbuf[k % 2]
+            torch.max(scores, dim=1, out=(V, ptrs[k]))
+        score, x_last = (V + LM[m]).max(dim=-1)
+        chain = torch.empty((m + 1, B), dtype=torch.int64, device=device)
+        chain[m] = x_last
+        for k in range(m - 1, -1, -1):
+            torch.gather(
+                ptrs[k], 1, chain[k + 1].unsqueeze(1), out=chain[k].unsqueeze(1)
+            )
+        return _to_var_columns(layout, chain), score
+
+    return fn
+
+
+_KBEST_PAD = -2e30
+_KBEST_PAD_FLOOR = -1e29  # scores below this are padding, not real paths
+
+
+def chain_kbest_program(plan: Plan, layout: ChainLayout, k: int):
+    """Exact k-best decoding on a uniform chain (list-Viterbi): the forward
+    loop carries the top-k path scores per state ([B, K, k]); each step
+    ranks the K*k candidate extensions per successor state with
+    ``torch.topk``; traceback follows (state, rank) pointers.
+
+    Distinct ranks are distinct PATHS by construction (each candidate is a
+    distinct (predecessor state, predecessor rank) pair).  When fewer than
+    k paths exist (k > K at early steps), padding entries score about -2e30:
+    callers drop scores below ``_KBEST_PAD_FLOOR``.
+
+    Returns ``fn(logA, logmasks) -> (assign [B, k, m+1] int32 in var-id
+    column order, scores [B, k] descending)``."""
+    m = len(layout.clique_order)
+    K = layout.card
+    k = int(k)
+
+    def fn(logA: torch.Tensor, logmasks: Dict[int, torch.Tensor]):
+        dtype, device = logA.dtype, logA.device
+        LM, B = _stack_log_masks(layout, logmasks, dtype, device)
+        V = torch.full((B, K, k), _KBEST_PAD, dtype=dtype, device=device)
+        V[:, :, 0] = 0.0
+        Vbuf = torch.empty((2, B, K, k), dtype=dtype, device=device)
+        ptrs = torch.empty((m, B, K, k), dtype=torch.int64, device=device)
+        for t in range(m):
+            # cand[b, q, (p, r)] = V[b,p,r] + lm[b,p] + a[p,q]
+            cand = (
+                (V + LM[t].unsqueeze(2)).unsqueeze(1)
+                + logA[t].t()[None, :, :, None]
+            ).reshape(B, K, K * k)
+            V = Vbuf[t % 2]
+            torch.topk(cand, k, dim=-1, out=(V, ptrs[t]))
+        final = (V + LM[m].unsqueeze(2)).reshape(B, K * k)
+        scores, flat = torch.topk(final, k, dim=-1)       # [B, k]
+        chain = torch.empty((m + 1, B, k), dtype=torch.int64, device=device)
+        chain[m] = flat // k                              # state q
+        r = flat % k                                      # rank within q
+        for t in range(m - 1, -1, -1):
+            # flat predecessor pointer for every kept path
+            f = ptrs[t].reshape(B, K * k).gather(1, chain[t + 1] * k + r)
+            chain[t] = f // k
+            r = f % k
+        return _to_var_columns(layout, chain), scores
 
     return fn
 

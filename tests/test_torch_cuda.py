@@ -26,14 +26,20 @@ def cuda():
 @pytest.mark.parametrize(
     "R1,R2,C,B",
     [(64, 4096, 1, 4096), (64, 2048, 2, 4096), (1, 37, 1, 5),
-     (3, 50, 17, 33), (5, 70, 300, 130), (2, 40, 3, 70000)],
+     (3, 50, 17, 33), (5, 70, 300, 130), (2, 40, 3, 70000),
+     # entropy_batch (C = 1, above) and joint_marginal_batch over 2, 3, 5
+     # and 6 of the 2^18-state clique's unobserved variables: both column
+     # tilings around C = 32, then R1 = 1 and unaligned rows at those C
+     (64, 1024, 4, 4096), (64, 512, 8, 4096), (64, 128, 32, 4096),
+     (64, 64, 64, 4096), (1, 512, 8, 4096), (1, 37, 4, 130),
+     (3, 37, 8, 130), (1, 50, 64, 100), (3, 37, 33, 130)],
 )
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain(cuda, R1, R2, C, B, dtype):
-    """Serving-path shapes of the 2^18-state clique, ragged edges, C = 1,
-    R1 = 1, C = 300 (r1 looped in the block), and a batch large enough that
-    r2 is not split; f32 within 1e-5 and bf16 inputs within 2e-2 of
-    max|out|."""
+    """Serving-path shapes of the 2^18-state clique (posteriors, entropy,
+    joints), ragged edges, C = 1, R1 = 1, C = 300 (r1 looped in the block),
+    and a batch large enough that r2 is not split; f32 within 1e-5 and bf16
+    inputs within 2e-2 of max|out|."""
     g = torch.Generator(device=cuda).manual_seed(R1 + R2 + C + B)
     pot, w1, w2 = (
         torch.rand(shape, generator=g, device=cuda).to(dtype)
@@ -322,3 +328,168 @@ def test_chunked_and_division_on_cuda_match_cpu(cuda, monkeypatch):
     np.testing.assert_allclose(qz.cpu(), rz, rtol=1e-4, atol=1e-30)
     for a, b in zip(qm, rm):
         np.testing.assert_allclose(a.cpu(), b, rtol=1e-4, atol=1e-30)
+
+
+def _routed_queries(device, dtype, masks, upd):
+    """Entropy, two joints and an incremental delta on the hub model."""
+    factors, sizes, values = _hub_model()
+    eng = jt.create_junction_tree(factors, sizes).engine(
+        device=device, dtype=dtype).set_potentials(values)
+    out = [*eng.entropy_batch(masks),
+           *eng.joint_marginal_batch(["h0", "h9"], masks),
+           *eng.joint_marginal_batch(["h9", "h2", "t3"], masks)]
+    posts, logz = eng.incremental(masks).query(upd, ["h1", "t2"])
+    return out + list(posts) + [logz]
+
+
+@pytest.mark.cuda
+def test_entropy_joint_incremental_route_through_kernel(cuda, monkeypatch):
+    """Threshold lowered to 2^8: entropy_batch, joint_marginal_batch and an
+    incremental session on the card launch the kernel (none of them falls
+    to the plain version or an einsum for a routed contraction) and agree
+    with the float64 run on the CPU within rtol 1e-4 / atol 1e-6; the
+    impossible row gives H = 0, Z = 0, a zero table and logZ = -inf."""
+    monkeypatch.setattr(DEFAULT, "big_clique_min_states", 1 << 8)
+    factors, sizes, _ = _hub_model()
+    plan = jt.compile_plan(factors, sizes)
+    masks = jt.batch_masks_sparse(plan, jt.random_evidence_batch(
+        plan, 300, ["t0", "t1", "h5", "h6", "h7"], seed=2))
+    masks["h5"][1] = 0.0
+    upd = {"t1": np.tile(np.array([[0.0, 1.0]], dtype=np.float32), (300, 1))}
+    launched, plain_calls = [], []
+    kernel, plain = fc.factored_masked_contract, fc.reference_factored_contract
+    monkeypatch.setattr(
+        fc, "reference_factored_contract",
+        lambda *a: plain_calls.append(1) or plain(*a))
+    before = kernel.launches
+    calls_before = fc.big_clique_sep_message.calls
+    got = _routed_queries(cuda, torch.float32, masks, upd)
+    torch.cuda.synchronize()
+    launched = kernel.launches - before
+    assert launched == fc.big_clique_sep_message.calls - calls_before > 10
+    assert not plain_calls
+    want = _routed_queries("cpu", torch.float64, masks, upd)
+    for g, w in zip(got, want):
+        g = g.cpu().double()
+        assert not torch.isnan(g).any()
+        assert torch.equal(torch.isneginf(g), torch.isneginf(w))
+        fin = torch.isfinite(w)
+        np.testing.assert_allclose(g[fin], w[fin], rtol=1e-4, atol=1e-6)
+    ent, z, table = got[0], got[1], got[2]
+    assert ent[1] == 0 and z[1] == 0 and (table[1] == 0).all()
+    assert torch.isneginf(got[-1][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("big_scope", [False, True])
+def test_log_entropy_batch_on_cuda_matches_cpu(cuda, big_scope, monkeypatch):
+    """``entropy_batch`` on a log-sum-exp engine (the per-element form under
+    ``torch.vmap``; with ``big_scope`` every several-operand contraction
+    takes the log-matmul-exp branch) on the card against the float64
+    sum-product run on the CPU: rtol 1e-4 / atol 1e-5, and an impossible
+    row of H = 0, Z = 0."""
+    from junctiontree_tpu_torch.models import alarm_like
+    from junctiontree_tpu_torch.ops import semirings
+
+    if big_scope:
+        monkeypatch.setattr(semirings, "LOG_EINSUM_MIN_STATES", 1)
+    factors, sizes, values = alarm_like(seed=4)
+    tree = jt.create_junction_tree(factors, sizes)
+    labels = list(sizes)[::4]
+    evs = jt.random_evidence_batch(tree.plan, 33, labels, seed=2)
+    masks = jt.batch_masks_sparse(tree.plan, evs)
+    lmasks = jt.batch_masks_sparse(tree.plan, evs, jt.LOG_SUM_EXP)
+    masks[labels[0]][1] = 0.0
+    lmasks[labels[0]][1] = -np.inf
+    dev = tree.engine("log_sum_exp", device=cuda).set_potentials(values)
+    ent, z = dev.entropy_batch(lmasks)
+    assert ent.is_cuda and ent.dtype == torch.float32
+    cpu = tree.engine(device="cpu", dtype=torch.float64).set_potentials(values)
+    want, want_z = cpu.entropy_batch(masks)
+    assert float(ent[1]) == 0.0 and float(z[1]) == 0.0
+    np.testing.assert_allclose(ent.cpu().double(), want, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(z.cpu().double(), want_z, rtol=1e-4, atol=1e-30)
+    one, _ = dev.entropy(evs[0])
+    assert one == pytest.approx(float(want[0]), rel=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["grid", "chain", "alarm"])
+def test_map_and_kbest_on_cuda_match_cpu_scores(cuda, model):
+    """MAP and k-best on the card against the CPU: equal scores (float32,
+    rtol 1e-5), int32 assignments that attain them, distinct k-best lists.
+    Assignments are not compared index for index: torch's CUDA ``topk``
+    and ``max`` may order equal scores differently from the CPU's."""
+    from junctiontree_tpu_torch.models import (
+        alarm_like, chain_bn_model, grid_mrf_model)
+
+    factors, sizes, values = {
+        "grid": lambda: grid_mrf_model(4, 4, seed=3),
+        "chain": lambda: chain_bn_model(200, card=3, seed=3),
+        "alarm": lambda: alarm_like(seed=3),
+    }[model]()
+    tree = jt.create_junction_tree(factors, sizes)
+    labels = list(sizes)[::5][:4]
+    B = 17
+    rng = np.random.default_rng(0)
+    masks = {}
+    for v in labels:
+        m = np.full((B, sizes[v]), -np.inf, dtype=np.float32)
+        m[np.arange(B), rng.integers(0, sizes[v], B)] = 0.0
+        masks[v] = m
+    masks[labels[0]][3] = -np.inf  # an infeasible row
+    dev = tree.engine("max_product", device=cuda).set_potentials(values)
+    cpu = tree.engine("max_product", device="cpu").set_potentials(values)
+    a, s = dev.map_assignment_batch(masks)
+    a2, s2 = dev.map_assignment_batch(masks, chunk=5)
+    ra, rs = cpu.map_assignment_batch(masks)
+    assert a.is_cuda and a.dtype == torch.int32
+    assert torch.equal(s, s2) and torch.equal(a, a2)
+    assert float(s[3]) < -1e29 and float(rs[3]) < -1e29
+    ok = [b for b in range(B) if b != 3]
+    np.testing.assert_allclose(s.cpu()[ok], rs[ok], rtol=1e-5)
+    for b in ok[:5]:
+        row = {tree.plan.table.label_of(v): int(a[b, v])
+               for v in range(tree.plan.num_vars)}
+        assert dev.score_assignment(row) == pytest.approx(float(s[b]), rel=1e-4)
+    ka, ks = dev.top_k_assignments_batch(masks, k=4)
+    _, rks = cpu.top_k_assignments_batch(masks, k=4)
+    np.testing.assert_allclose(ks.cpu()[ok], rks[ok], rtol=1e-5)
+    np.testing.assert_allclose(ks[:, 0].cpu()[ok], s.cpu()[ok], rtol=1e-5)
+    assert (ks[:, :-1] >= ks[:, 1:]).all()
+    for b in ok[:5]:
+        assert len({tuple(r) for r in ka[b].tolist()}) == 4
+    top = dev.top_k_assignments({labels[1]: 0}, k=3)
+    rtop = cpu.top_k_assignments({labels[1]: 0}, k=3)
+    np.testing.assert_allclose([x for _, x in top], [x for _, x in rtop], rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_load_on_cuda_and_multiply_factor(cuda, tmp_path):
+    """save on the CPU, load(device="cuda"): the same posteriors as an
+    engine built on the card (bitwise), and a live edit is served."""
+    from junctiontree_tpu_torch.models import alarm_like
+
+    factors, sizes, values = alarm_like(seed=2)
+    tree = jt.create_junction_tree(factors, sizes)
+    path = str(tmp_path / "alarm.npz")
+    tree.engine(device="cpu").set_potentials(values).save(path)
+    eng = jt.Engine.load(path, device="cuda")
+    assert eng.device.type == "cuda" and eng._pots[0].is_cuda
+    built = tree.engine(device=cuda).set_potentials(values)
+    labels = list(sizes)[::4]
+    masks = jt.batch_masks_sparse(
+        tree.plan, jt.random_evidence_batch(tree.plan, 20, labels, seed=1))
+    post, logz = eng.posterior_batch(masks)
+    want, want_logz = built.posterior_batch(masks)
+    assert torch.equal(logz, want_logz)
+    assert all(torch.equal(a, b) for a, b in zip(post, want))
+    v0 = tree.plan.table.label_of(tree.plan.tri.maxcliques[0][0])
+    val = np.linspace(0.5, 2.0, sizes[v0])
+    eng.multiply_factor([v0], val)
+    cpu = tree.engine(device="cpu", dtype=torch.float64).set_potentials(values)
+    cpu.multiply_factor([v0], val)
+    _, z1 = eng.posterior_batch(masks)
+    _, z2 = cpu.posterior_batch(masks)
+    np.testing.assert_allclose(z1.cpu().double(), z2, atol=1e-4)
+    assert eng.describe()["device"].startswith("cuda")
