@@ -42,10 +42,25 @@ public entry points (``create_junction_tree(...).engine(...)
   the float64 engine;
 * ``surgery_checkpoint``: ``multiply_factor`` against an engine built on
   ``surgery.add_factor``'s plan, ``save`` and ``load(device=...)``, and
-  ``max_feasible_batch`` beside the measured peak.
+  ``max_feasible_batch`` beside the measured peak;
+* ``kernel_backward_vs_plain``: the three gradients of the kernel's
+  ``torch.autograd.Function`` at the two serving shapes against
+  ``torch.autograd.grad`` of the plain version, with the time of each piece
+  beside its bound and both ways of taking ``dw2``;
+* ``learning``: ``learn.expected_counts`` and three steps of
+  ``fit_mle_missing`` on the big clique (N = 4096 rows, 6 of 18 columns
+  missing) and on the big clique with 18 tails (whose backward pass launches
+  the kernel for ``dw1`` and ``dw2``), held to float64 and to launch counts
+  taken on meta tensors; ``fit_mle_chain`` on the 5,000-chain; and
+  ``expected_counts`` on ``hailfinder_like()`` (the einsum route under
+  autograd);
+* ``solvers``: Marginal MAP on the 6x6 grid (B = 2048), ``CutsetEngine`` on
+  ``hailfinder_like()`` (B = 1024) against the monolithic engine, loopy BP
+  on the 30x30 grid (B = 256) against its CPU run, 100,000 exact samples of
+  the sprinkler network, and ``chow_liu`` on samples of a tree.
 
-With ``--profile`` the serving models also print their device time by
-kernel (``torch.profiler``).  Each phase prints one JSON line; the kernel
+With ``--profile`` the serving models, the learning steps and the solvers
+also print their device time by kernel (``torch.profiler``).  Each phase prints one JSON line; the kernel
 table and the card's name and power limit come before the last line, which
 is ``{"ok": true, "device": {...}}``.  Any failure raises, and the script
 exits non-zero without that line.  It needs a CUDA device and never falls
@@ -186,7 +201,7 @@ def k1_counts_reset():
         factored_masked_contract as k1,
     )
 
-    k1.launches = k1.launches_bf16 = 0
+    k1.launches = k1.launches_bf16 = k1.launches_backward = 0
     return k1
 
 
@@ -1069,6 +1084,517 @@ def phase_surgery(dev, big, hail):
           "describe_kernel_launches": eng.describe()["kernel_launches"]})
 
 
+LEARN_BIG = "fit_mle_missing step (big clique)"
+LEARN_FWD = "expected_counts forward (tailed big clique)"
+LEARN_BWD = "expected_counts backward (tailed big clique)"
+
+
+def missing_data(plan, values, N, hidden, seed, dev):
+    """[N, num_vars] exact samples of the model, drawn on the card, with the
+    ``hidden`` var ids missing (-1)."""
+    import numpy as np
+
+    import junctiontree_tpu_torch as jt
+    from junctiontree_tpu_torch.sampling import engine_sample
+
+    eng = jt.Engine(plan, device=dev).set_potentials(values)
+    data = np.array(engine_sample(eng, seed, N), dtype=np.int64)
+    data[:, hidden] = -1
+    return data
+
+
+def k1_learning_calls_on_meta(plan, values, N):
+    """What one E-step (logZ of N evidence rows and its gradient) asks of
+    the kernel, from a run on meta tensors: (R1, R2, C, B), the strides of
+    the potential as it is handed over, and whether the backward pass made
+    the call, in order."""
+    import torch
+
+    from junctiontree_tpu_torch import learn
+    from junctiontree_tpu_torch.ops import factored_contract as fc
+
+    calls = []
+    inner = fc._contract_on_device
+
+    def record(pot, w1, w2, backward=False):
+        calls.append((tuple(int(d) for d in pot.shape) + (int(w1.shape[0]),),
+                      tuple(pot.stride()), backward))
+        return inner(pot, w1, w2, backward)
+
+    meta = torch.device("meta")
+    masks = [torch.empty((N, n), device=meta) for n in plan.sizes]
+    fc._contract_on_device = record
+    try:
+        learn._e_step(learn._obs_logz_program(plan), values, masks, meta,
+                      torch.float32)
+    finally:
+        fc._contract_on_device = inner
+    return calls
+
+
+def learning_models(N=4096):
+    """The two big-clique learning problems: the model, the 6 of its 18
+    clique columns that the data will miss, and the kernel calls of one
+    E-step on N rows, from meta tensors."""
+    import junctiontree_tpu_torch as jt
+
+    out = {}
+    for name, model in (("big", big_clique_model()),
+                        ("tailed", tailed_big_clique_model())):
+        factors, sizes, values, names = model[:4]
+        plan = jt.compile_plan(factors, sizes)
+        hidden = [plan.table.id_of(n) for n in names[::3]]
+        out[name] = dict(plan=plan, values=values, hidden=hidden, N=N,
+                         calls=k1_learning_calls_on_meta(plan, values, N))
+    return out
+
+
+def phase_kernel_backward(dev, device_ms, host_us):
+    """The gradients of the kernel's autograd Function at the two serving
+    shapes: against ``torch.autograd.grad`` of the plain version (1e-5 of
+    max|grad|), two runs bitwise equal, and the device time of each piece
+    (dw1 and dw2: the kernel on a permuted potential; dpot: one matrix
+    product) beside its bound, the plain version's and one ``einsum``'s."""
+    import torch
+
+    from junctiontree_tpu_torch.ops import factored_contract as fc
+
+    k1 = fc.factored_masked_contract
+    g = torch.Generator(device=dev).manual_seed(1)
+    for R1, R2, C, B in ((64, 2048, 2, 4096), (64, 4096, 1, 4096)):
+        # the potential in the layout the route hands over
+        pot = torch.rand((R2, R1, C), generator=g, device=dev).permute(1, 0, 2)
+        w1 = torch.rand((B, R1), generator=g, device=dev)
+        w2 = torch.rand((B, R2), generator=g, device=dev)
+        up = torch.rand((B, C), generator=g, device=dev)
+
+        def grads(fn):
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in (pot, w1, w2)]
+            out = fn(*leaves)
+            require(out.grad_fn is not None, "an output without grad_fn")
+            return torch.autograd.grad(out, leaves, up)
+
+        k1_counts_reset()
+        got = grads(k1)
+        torch.cuda.synchronize()
+        require(k1.launches == 3 and k1.launches_backward == 2,
+                f"backward: {k1.launches} launches, {k1.launches_backward} "
+                "of them backward; expected 3 and 2")
+        want = grads(fc.reference_factored_contract)
+        errs = {}
+        for name, a, b in zip(("dpot", "dw1", "dw2"), got, want):
+            errs[name] = ((a - b).abs().max() / b.abs().max()).item()
+            require(errs[name] <= 1e-5,
+                    f"{name} disagrees at {(R1, R2, C, B)}: {errs[name]}")
+        for a, b in zip(got, grads(k1)):
+            require(torch.equal(a, b), "two backward runs differ")
+        ein = lambda p, a, b: torch.einsum("rsc,br,bs->bc", p, a, b)
+        for a, b in zip(grads(ein), want):
+            require(((a - b).abs().max() / b.abs().max()).item() <= 1e-4,
+                    "einsum's gradient disagrees with the plain version's")
+        none = fc._contract_on_device
+        pieces = {
+            "dw1": lambda c=none: c(pot.permute(2, 1, 0), up, w2),
+            "dw2": lambda c=none: c(pot.permute(2, 0, 1), up, w1),
+            # the other assignment: g in w2's place, an inner loop of C
+            "dw2_g_as_w2": lambda c=none: c(pot.permute(0, 2, 1), w1, up),
+        }
+        ref = fc.reference_factored_contract
+        line = {"phase": "kernel_backward_vs_plain", "R1": R1, "R2": R2,
+                "C": C, "B": B, "dtype": "float32", "rel_err": errs,
+                "tol": 1e-5, "bitwise_repeatable": True}
+        alt = pieces["dw2_g_as_w2"]()
+        require(((alt - want[2]).abs().max() / want[2].abs().max()).item()
+                <= 1e-5, "dw2 with g as w2 disagrees")
+        ops_ms = 2 * B * R1 * R2 * C / PEAK_F32 * 1e3
+        # the one PyTorch call for each kernel piece's function: a yardstick
+        # only (dpot is a library product already)
+        library = {
+            "dw1": lambda: torch.einsum("rsc,bc,bs->br", pot, up, w2),
+            "dw2": lambda: torch.einsum("rsc,br,bc->bs", pot, w1, up),
+        }
+        for name, fn in pieces.items():
+            line[name + "_ms"] = device_ms(fn)
+            line[name + "_plain_ms"] = device_ms(lambda: fn(ref))
+        line["dpot_ms"] = device_ms(lambda: fc._contract_grads(
+            None, pot, w1, w2, up, (True, False, False)))
+        for name, fn in library.items():
+            line[name + "_library_ms"] = device_ms(fn)
+        bytes_ms = 4 * (R1 * R2 * C + B * (R1 + R2 + C)) / PEAK_BYTES * 1e3
+        line["piece_bound_ms"] = max(ops_ms, bytes_ms)
+        line["piece_bound_by"] = "operations" if ops_ms > bytes_ms else "bytes"
+        # forward and backward together on standing leaves: the Function,
+        # the plain version under autograd, one einsum under autograd; the
+        # spin is long enough for the slowest host side of the three
+        leaves = [t.detach().clone().requires_grad_(True) for t in (pot, w1, w2)]
+        for name, fn in (("function", k1), ("plain", ref), ("einsum", ein)):
+            both = lambda: torch.autograd.grad(fn(*leaves), leaves, up)
+            line[name + "_fwd_bwd_ms"] = device_ms(
+                both, iters=10, spin_cycles=100_000_000)
+            line[name + "_fwd_bwd_host_us"] = host_us(both, iters=50)
+        line["fwd_bwd_bound_ms"] = 4 * line["piece_bound_ms"]
+        emit(line)
+
+
+def chain_samples(plan, values, N, seed):
+    """[N, n] ancestral samples of ``chain_bn_model``'s chain (``values[0]``
+    over x0, ``values[i]`` the table of (x_{i-1}, x_i)), by var id."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = plan.num_vars
+    data = np.zeros((N, n), dtype=np.int64)
+    p0 = np.asarray(values[0], dtype=np.float64)
+    col = (rng.random(N)[:, None] > np.cumsum(p0 / p0.sum())[None, :-1]).sum(axis=1)
+    data[:, plan.table.id_of("x0")] = col
+    for i in range(1, n):
+        t = np.asarray(values[i], dtype=np.float64)
+        cum = np.cumsum(t / t.sum(axis=-1, keepdims=True), axis=-1)
+        col = (rng.random(N)[:, None] > cum[col][:, :-1]).sum(axis=1)
+        data[:, plan.table.id_of(f"x{i}")] = col
+    return data
+
+
+def phase_learning(dev, learn_models, chain, profile):
+    """Learning on the card.  (a) ``expected_counts`` on the big clique and
+    on the big clique with tails, N = 4096 rows with 6 of 18 clique columns
+    missing: held to the same call in float64 on the card (the plain
+    version; rtol 1e-4), kernel launches forward and backward equal to the
+    calls counted on meta tensors; then 3 steps of ``fit_mle_missing`` with a
+    rising likelihood.  (b) ``fit_mle_chain`` on the 5,000-chain, N = 1024, 3
+    steps.  (c) ``expected_counts`` on hailfinder_like, N = 32: the einsum
+    route under autograd.  Returns {path: kernel launches}."""
+    import numpy as np
+    import torch
+
+    import junctiontree_tpu_torch as jt
+    from junctiontree_tpu_torch import learn
+    from junctiontree_tpu_torch.learn_chain import fit_mle_chain
+    from junctiontree_tpu_torch.models import hailfinder_like
+
+    line = {"phase": "learning", "limits": {"rtol": 1e-4, "atol": 1e-3}}
+    launched = {}
+    for name, lm in learn_models.items():
+        plan, values = lm["plan"], lm["values"]
+        data = missing_data(plan, values, lm["N"], lm["hidden"], 7, dev)
+        masks = learn.masks_from_data(plan, data)
+        fwd = sum(1 for c in lm["calls"] if not c[2])
+        bwd = sum(1 for c in lm["calls"] if c[2])
+        k1 = k1_counts_reset()
+        counts, peak = peak_bytes(
+            lambda: learn.expected_counts(plan, values, masks, device=dev))
+        n_fwd, n_bwd = k1.launches - k1.launches_backward, k1.launches_backward
+        require((n_fwd, n_bwd) == (fwd, bwd),
+                f"learning ({name}): {n_fwd} forward and {n_bwd} backward "
+                f"kernel launches, {fwd} and {bwd} calls on meta tensors")
+        require(n_fwd > 0, f"learning ({name}) never launched the kernel")
+        want = learn.expected_counts(plan, values, masks, device=dev,
+                                     dtype=torch.float64)
+        require(k1.launches == n_fwd + n_bwd,
+                "the float64 run launched the float32 kernel")
+        worst = 0.0
+        for c, w in zip(counts, want):
+            require(np.isfinite(c).all(), "non-finite expected counts")
+            np.testing.assert_allclose(c, w, rtol=1e-4, atol=1e-3,
+                                       err_msg=f"expected_counts ({name})")
+            worst = max(worst, float(np.abs(c - w).max()))
+        require(abs(counts[0].sum() - len(data)) <= 1e-3 * len(data),
+                "expected counts of a factor do not sum to N")
+        t = step_ms(lambda: learn.expected_counts(plan, values, masks, device=dev),
+                    iters=5, warmup=1)
+        k1 = k1_counts_reset()
+        steps = 3
+        t0 = time.perf_counter()
+        thetas, hist = learn.fit_mle_missing(plan, data, steps=steps, device=dev)
+        torch.cuda.synchronize()
+        t_fit = (time.perf_counter() - t0) * 1e3 / steps
+        require(all(b > a for a, b in zip(hist, hist[1:])),
+                f"fit_mle_missing ({name}): the likelihood does not rise: {hist}")
+        require(k1.launches == steps * (fwd + bwd)
+                and k1.launches_backward == steps * bwd,
+                f"fit_mle_missing ({name}): {k1.launches} launches in {steps} steps")
+        require(all(np.isfinite(t_).all() for t_ in thetas), "non-finite thetas")
+        if name == "big":
+            launched[LEARN_BIG] = k1.launches // steps
+        else:
+            launched[LEARN_FWD], launched[LEARN_BWD] = n_fwd, n_bwd
+        line.update({
+            name + "_N": len(data), name + "_cliques": plan.tri.num_cliques,
+            name + "_kernel_launches_forward": n_fwd,
+            name + "_kernel_launches_backward": n_bwd,
+            name + "_calls_on_meta": [fwd, bwd],
+            name + "_expected_counts_ms": t,
+            name + "_expected_counts_peak_mem_bytes": peak,
+            name + "_max_abs_err_vs_f64": worst,
+            name + "_fit_step_ms": t_fit, name + "_loglik": hist})
+        if profile:
+            busy, n_kernels, top = profile_step(
+                lambda: learn.expected_counts(plan, values, masks, device=dev))
+            line.update({name + "_device_busy_ms_per_step": busy,
+                         name + "_kernels_per_step": n_kernels,
+                         name + "_top_kernels": top[:4]})
+
+    # (b) the chain learner on the 5,000-chain
+    ctree, cvalues = chain
+    cplan = ctree.plan
+    n, N = cplan.num_vars, 1024
+    cdata = chain_samples(cplan, cvalues, N, seed=3)
+    cdata[np.random.default_rng(3).random(cdata.shape) < 0.1] = -1
+    k1 = k1_counts_reset()
+    t0 = time.perf_counter()
+    (cth, chist), cpeak = peak_bytes(
+        lambda: fit_mle_chain(cplan, cdata, steps=3, device=dev))
+    t_chain = (time.perf_counter() - t0) * 1e3 / 3
+    require(all(b > a for a, b in zip(chist, chist[1:])),
+            f"fit_mle_chain: the likelihood does not rise: {chist}")
+    require(len(cth) == len(cplan.factors) and k1.launches == 0, "fit_mle_chain")
+    line.update(chain_variables=n, chain_N=N, chain_step_ms=t_chain,
+                chain_peak_mem_bytes=cpeak, chain_loglik=chist)
+
+    # (c) hailfinder_like: the einsum route under autograd
+    factors, sizes, values = hailfinder_like(seed=0)
+    hplan = jt.compile_plan(factors, sizes)
+    Nh = 32
+    hdata = np.stack([np.random.default_rng(9).integers(0, n_, Nh)
+                      for n_ in hplan.sizes], axis=1)
+    hdata[:, 1::3] = -1
+    hmasks = learn.masks_from_data(hplan, hdata)
+    obs_logz = learn._obs_logz_program(hplan)
+    dmasks = [torch.as_tensor(m, device=dev) for m in hmasks]
+    thetas = [torch.log(torch.as_tensor(v, dtype=torch.float32, device=dev)
+                        .clamp_min(1e-38)) for v in values]
+    with torch.no_grad():
+        logz, fwd_peak = peak_bytes(lambda: obs_logz(thetas, dmasks))
+    del logz
+    k1 = k1_counts_reset()
+    hcounts, hpeak = peak_bytes(
+        lambda: learn.expected_counts(hplan, values, hmasks, device=dev))
+    require(k1.launches == 0, "hailfinder learning launched the kernel")
+    rows = 4
+    hwant = learn.expected_counts(hplan, values, [m[:rows] for m in hmasks],
+                                  device=dev, dtype=torch.float64)
+    hsub = learn.expected_counts(hplan, values, [m[:rows] for m in hmasks],
+                                 device=dev)
+    hworst = 0.0
+    for c, w in zip(hsub, hwant):
+        np.testing.assert_allclose(c, w, rtol=1e-4, atol=1e-4,
+                                   err_msg="expected_counts (hailfinder_like)")
+        hworst = max(hworst, float(np.abs(c - w).max()))
+    require(all(abs(c.sum() - Nh) <= 1e-3 * Nh for c in hcounts),
+            "hailfinder expected counts do not sum to N")
+    t_h = step_ms(lambda: learn.expected_counts(hplan, values, hmasks, device=dev),
+                  iters=2, warmup=0)
+    if profile:
+        busy, n_kernels, top = profile_step(
+            lambda: learn.expected_counts(hplan, values, hmasks, device=dev),
+            steps=2)
+        line.update(hailfinder_device_busy_ms_per_step=busy,
+                    hailfinder_kernels_per_step=n_kernels,
+                    hailfinder_top_kernels=top[:4])
+    line.update(hailfinder_N=Nh, hailfinder_expected_counts_ms=t_h,
+                hailfinder_peak_mem_bytes=hpeak,
+                hailfinder_forward_only_peak_mem_bytes=fwd_peak,
+                hailfinder_max_abs_err_vs_f64=hworst,
+                hailfinder_rows_checked=rows, hailfinder_kernel_launches=0)
+    emit(line)
+    return launched
+
+
+def strong_tree_samples(n_vars, N, seed):
+    """Ancestral samples [N, n_vars] of a random tree BN with strongly
+    coupled CPDs (cards 2 and 3), and its undirected edges."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cards = [2 + (v % 2) for v in range(n_vars)]
+    parent = {v: int(rng.integers(0, v)) for v in range(1, n_vars)}
+    data = np.zeros((N, n_vars), dtype=np.int64)
+    data[:, 0] = rng.integers(0, cards[0], N)
+    for v in range(1, n_vars):
+        p = parent[v]
+        cpd = rng.random((cards[p], cards[v])) * 0.2
+        for i in range(cards[p]):
+            cpd[i, i % cards[v]] += 2.0
+        cum = np.cumsum(cpd / cpd.sum(axis=1, keepdims=True), axis=1)
+        data[:, v] = (rng.random(N)[:, None] > cum[data[:, p]]).sum(axis=1)
+    return data, cards, {frozenset((p, v)) for v, p in parent.items()}
+
+
+def phase_solvers(dev, hail, profile):
+    """The solvers beside the engine, each at a size of the JAX package's
+    own benchmark and held to a reference."""
+    import numpy as np
+    import torch
+
+    import junctiontree_tpu_torch as jt
+    from junctiontree_tpu_torch.models import grid_mrf_model, sprinkler_model
+    from junctiontree_tpu_torch.sampling import engine_sample
+
+    line = {"phase": "solvers"}
+    k1 = k1_counts_reset()
+
+    # Marginal MAP: 6x6 grid, 6 MAP variables, B = 2048, against float64
+    factors, sizes, values = grid_mrf_model(6, 6, seed=0)
+    names = list(sizes)
+    map_vars = names[::7][:6]
+    B = 2048
+    rng = np.random.default_rng(4)
+    obs = [v for v in names if v not in map_vars][:4]
+    masks = {}
+    for v in obs:
+        m = np.full((B, sizes[v]), -1e30, dtype=np.float32)
+        m[np.arange(B), rng.integers(0, sizes[v], size=B)] = 0.0
+        masks[v] = m
+    masks[obs[0]][5] = -np.inf  # row 5: no state of this variable allowed
+    solver = jt.MarginalMapSolver(factors, sizes, map_vars, device=dev)
+    solver.set_potentials(values)
+    (assign, score), peak = peak_bytes(lambda: solver.query_batch(masks))
+    ref = jt.MarginalMapSolver(factors, sizes, map_vars, device=dev,
+                               dtype=torch.float64).set_potentials(values)
+    rassign, rscore = ref.query_batch(masks)
+    require(assign.dtype == torch.int32 and tuple(assign.shape) == (B, 6),
+            "MMAP assignment")
+    require(float(score[5]) < -1e29 and not bool(torch.isnan(score).any()),
+            "MMAP: the infeasible row does not score below -1e29")
+    ok = rscore > -1e29
+    err = ((score.double() - rscore)[ok].abs() / rscore[ok].abs()).max().item()
+    require(err <= 1e-5, f"MMAP scores differ from float64 by {err}")
+    same = float((assign[ok] == rassign[ok]).all(dim=1).double().mean())
+    require(same >= 0.99, f"MMAP assignments equal float64's on {same} of rows")
+    t = step_ms(lambda: solver.query_batch(masks), iters=5, warmup=1)
+    line.update(mmap_grid="6x6", mmap_B=B, mmap_map_vars=len(map_vars),
+                mmap_constrained_width=solver.constrained_width,
+                mmap_step_ms=t, mmap_queries_per_s=B / t * 1e3,
+                mmap_peak_mem_bytes=peak, mmap_max_rel_err_vs_f64=err,
+                mmap_rows_with_f64_assignment=same)
+    if profile:
+        busy, n_kernels, _ = profile_step(lambda: solver.query_batch(masks))
+        line.update(mmap_device_busy_ms_per_step=busy,
+                    mmap_kernels_per_step=n_kernels)
+    del solver, ref
+
+    # cutset conditioning on hailfinder_like, B = 1024, against the engine
+    hf, hs, hv = hail["factors"], hail["sizes"], hail["values"]
+    hnames = list(hs)
+    Bc, rows = 1024, 128
+    rng = np.random.default_rng(0)
+    cmasks = {}
+    for v in hnames[::5]:
+        m = np.zeros((Bc, hs[v]), dtype=np.float32)
+        m[np.arange(Bc), rng.integers(0, hs[v], Bc)] = 1.0
+        cmasks[v] = m
+    t0 = time.perf_counter()
+    ce = jt.CutsetEngine(hf, hs, hv, target_states=1 << 14, max_enum=512,
+                         device=dev)
+    build = time.perf_counter() - t0
+    require(len(ce.cutset) > 0, "the cutset is empty")
+    cmasks[hnames[0]][3] = 0.0              # row 3: impossible, reduced variable
+    on_cut = np.ones((Bc, hs[ce.cutset[0]]), dtype=np.float32)
+    on_cut[7] = 0.0                         # row 7: impossible, cutset variable
+    cmasks[ce.cutset[0]] = cmasks.get(ce.cutset[0], 1.0) * on_cut
+    st = ce.describe()
+    chunk = ce._chunk_for(Bc)
+    torch.cuda.empty_cache()
+    (cposts, clogz), cpeak = peak_bytes(lambda: ce.posterior_batch(cmasks))
+    t_c = step_ms(lambda: ce.posterior_batch(cmasks), iters=2, warmup=0)
+    eposts, elogz = hail["eng"].posterior_batch(
+        {k: v[:rows] for k, v in cmasks.items()})
+    plan = hail["tree"].plan
+    require(bool(torch.isneginf(clogz[3])) and bool(torch.isneginf(clogz[7]))
+            and bool(torch.isneginf(elogz[3])) and bool(torch.isneginf(elogz[7])),
+            "cutset: impossible rows are not -inf")
+    cworst = check_close(
+        [cposts[plan.table.label_of(v)] for v in range(plan.num_vars)], clogz,
+        eposts, elogz, plan.num_vars, "cutset vs engine", rows=rows,
+        rtol=1e-3, atol=1e-5, logz_atol=1e-3)
+    line.update(
+        cutset_model="hailfinder_like", cutset_B=Bc, cutset=st["cutset"],
+        cutset_states=st["cutset_states"], cutset_build_s=build,
+        cutset_reduced_max_clique_states=st["max_clique_states"],
+        cutset_reduced_total_clique_states=st["total_clique_states"],
+        cutset_chunk=chunk, cutset_chunk_budget_bytes=ce._chunk_budget,
+        cutset_reckoned_bytes_per_chunk=4 * Bc * st["max_clique_states"] * 2 * chunk,
+        cutset_peak_mem_bytes=cpeak, cutset_step_ms=t_c,
+        cutset_queries_per_s=Bc / t_c * 1e3,
+        cutset_max_abs_err_vs_engine=cworst, cutset_rows_checked=rows,
+        cutset_limits={"rtol": 1e-3, "atol": 1e-5, "logz_atol": 1e-3})
+    if profile:
+        busy, n_kernels, top = profile_step(
+            lambda: ce.posterior_batch(cmasks), steps=1)
+        line.update(cutset_device_busy_ms_per_step=busy,
+                    cutset_kernels_per_step=n_kernels,
+                    cutset_top_kernels=top[:4])
+    del ce, cposts, eposts
+    torch.cuda.empty_cache()
+
+    # loopy BP: 30x30 grid, 100 iterations, B = 256, against its CPU run
+    factors, sizes, values = grid_mrf_model(30, 30, coupling=0.3, seed=0)
+    Bl, lrows = 256, 8
+    rng = np.random.default_rng(1)
+    lmasks = {}
+    for v in list(sizes)[:100]:
+        m = np.zeros((Bl, 2), dtype=np.float32)
+        m[np.arange(Bl), rng.integers(0, 2, Bl)] = 1.0
+        lmasks[v] = m
+    settings = dict(damping=0.5, max_iters=100, tol=0.0, chunk_iters=100)
+    leng = jt.LoopyEngine(factors, sizes, values, device=dev, **settings)
+    (lposts, llogz, info), lpeak = peak_bytes(lambda: leng.posterior_batch(lmasks))
+    require(info["iters"] == 100 and bool(torch.isfinite(llogz).all()), "loopy BP")
+    cpu = jt.LoopyEngine(factors, sizes, values, device="cpu", **settings)
+    wposts, wlogz, _ = cpu.posterior_batch({k: v[:lrows] for k, v in lmasks.items()})
+    lerr = max((lposts[v][:lrows].cpu() - wposts[v]).abs().max().item()
+               for v in range(leng.num_vars))
+    lz_err = ((llogz[:lrows].cpu() - wlogz).abs() / wlogz.abs()).max().item()
+    require(lerr <= 1e-4 and lz_err <= 1e-4,
+            f"loopy BP differs from its CPU run: {lerr}, logZ {lz_err}")
+    t_l = step_ms(lambda: leng.posterior_batch(lmasks), iters=3, warmup=1)
+    line.update(loopy_grid="30x30", loopy_B=Bl, loopy_iters=info["iters"],
+                loopy_delta=info["delta"], loopy_step_ms=t_l,
+                loopy_queries_per_s=Bl / t_l * 1e3, loopy_peak_mem_bytes=lpeak,
+                loopy_max_abs_err_vs_cpu=lerr, loopy_max_rel_logz_err_vs_cpu=lz_err,
+                loopy_rows_checked=lrows, loopy_limits={"atol": 1e-4})
+    if profile:
+        busy, n_kernels, _ = profile_step(
+            lambda: leng.posterior_batch(lmasks), steps=2)
+        line.update(loopy_device_busy_ms_per_step=busy,
+                    loopy_kernels_per_step=n_kernels)
+    del leng
+
+    # 100,000 exact samples of the sprinkler network
+    f, s, v = sprinkler_model()
+    stree = jt.create_junction_tree(f, s)
+    seng = stree.engine(device=dev).set_potentials(v)
+    n = 100_000
+    t0 = time.perf_counter()
+    draws = engine_sample(seng, 11, n, evidence={"wet_grass": 1})
+    t_s = (time.perf_counter() - t0) * 1e3
+    require(np.array_equal(draws, engine_sample(seng, 11, n, {"wet_grass": 1})),
+            "two sample runs from one seed differ")
+    post, _ = seng.query({"wet_grass": 1})
+    worst_se = 0.0
+    for vid in range(stree.plan.num_vars):
+        p = float(post[vid][1])
+        se = max(np.sqrt(p * (1 - p) / n), 1e-9)
+        worst_se = max(worst_se, abs(draws[:, vid].mean() - p) / se)
+    require(worst_se <= 3.0,
+            f"sample frequencies are {worst_se} standard errors off")
+    line.update(samples=n, sampling_ms=t_s, samples_worst_standard_errors=worst_se,
+                samples_seeded_twice_equal=True)
+
+    # Chow-Liu on samples of a tree
+    data, cards, edges = strong_tree_samples(40, 50_000, seed=5)
+    t0 = time.perf_counter()
+    cf, cs_, cv, cedges = jt.chow_liu(data, cards=cards, device=dev)
+    t_cl = (time.perf_counter() - t0) * 1e3
+    require({frozenset(e) for e in cedges} == edges,
+            "chow_liu did not recover the tree")
+    line.update(chow_liu_vars=40, chow_liu_N=50_000, chow_liu_ms=t_cl,
+                chow_liu_recovered=True)
+    require(k1.launches == 0, "a solver launched the big-clique kernel")
+    emit(line)
+
+
 def main() -> int:
     import torch
 
@@ -1139,6 +1665,16 @@ def main() -> int:
                    for k, run in paths.items()}
     tailed = tailed_session()
     path_shapes[TAILED_PATH] = tailed["both"]
+    # the learning paths: forward and backward calls of one E-step, with
+    # the strides of the potential as the route or the backward pass hands
+    # it to the wrapper
+    learn_models = learning_models()
+    path_shapes[LEARN_BIG] = [c[0] for c in learn_models["big"]["calls"]]
+    path_shapes[LEARN_FWD] = [
+        c[0] for c in learn_models["tailed"]["calls"] if not c[2]]
+    path_shapes[LEARN_BWD] = [
+        c[0] for c in learn_models["tailed"]["calls"] if c[2]]
+    handed = {c[0][:3]: c[1] for lm in learn_models.values() for c in lm["calls"]}
     require(all(len(v) > 0 for v in path_shapes.values()),
             f"a big-clique path routes no kernel call: {path_shapes}")
     main_shapes = path_shapes["posterior_batch"]
@@ -1163,6 +1699,9 @@ def main() -> int:
     def rand_pot(R1, R2, C, dtype, as_handed=True):
         """pot [R1, R2, C]; as_handed: in the memory layout that
         big_clique_sep_message hands the kernel (no copy in the wrapper)."""
+        if as_handed and (R1, R2, C) in handed:
+            return torch.rand((R1 * R2 * C,), generator=g, device=dev).to(
+                dtype).as_strided((R1, R2, C), handed[R1, R2, C])
         if as_handed and fc.tiles_by_n(C):
             return torch.rand((R2, R1, C), generator=g,
                               device=dev).to(dtype).permute(1, 0, 2)
@@ -1326,14 +1865,15 @@ def main() -> int:
     # -- 6. the rest of the serving path ------------------------------------
     phase_log(dev, tree, values, masks, post, logz)
     torch.cuda.empty_cache()
-    hail = dict(tree=tree, values=values, masks=masks, eng=eng, post=post,
-                B=Bh, peak=peak)
+    hail = dict(tree=tree, factors=factors, sizes=sizes, values=values,
+                masks=masks, eng=eng, post=post, B=Bh, peak=peak)
     chain = phase_chain(dev, profile)
     grid = phase_fused(dev, profile)
     phase_chunked(dev, eng, plan, grid)
 
     # -- 7. the query surfaces beyond posteriors ------------------------------
     phase_map(dev, hail, chain, grid, profile)
+    chain_model = chain[:2]
     del chain, grid, post
     hail["post"] = None
     torch.cuda.empty_cache()
@@ -1341,9 +1881,17 @@ def main() -> int:
     path_launches[TAILED_PATH] = phase_incremental(dev, hail, tailed)
     del tailed
     phase_surgery(dev, big, hail)
-    del eng, hail, big
+    del big
 
-    # -- 8. kernel table, card, result --------------------------------------
+    # -- 8. learning and the solvers beside the engine -------------------------
+    phase_kernel_backward(dev, device_ms, host_us)
+    path_launches.update(phase_learning(dev, learn_models, chain_model, profile))
+    del learn_models, chain_model
+    torch.cuda.empty_cache()
+    phase_solvers(dev, hail, profile)
+    del eng, hail
+
+    # -- 9. kernel table, card, result --------------------------------------
     # the kernel once per dtype and path it serves; launches are those of
     # that path's serving phase, times are sums over one call of the path
     path_launches["posterior_batch"] = launches
@@ -1361,6 +1909,7 @@ def main() -> int:
         "library_ms": tot["library_ms"],
         "per": "%s (%d launches), %s" % (
             "a session opened and one delta, " + path if path == TAILED_PATH
+            else "one " + path if path in (LEARN_BIG, LEARN_FWD, LEARN_BWD)
             else "one %s call on the big clique" % path,
             n_launched, "bfloat16 storage" if bf16 else "float32"),
     } for bf16, path, n_launched, tot in (

@@ -27,20 +27,38 @@ Beyond posteriors the engine answers ``map_assignment(_batch)`` and
 ``joint_marginal(_batch)`` and ``mutual_information``; ``incremental``
 opens a cached-collect session; ``multiply_factor`` edits a live engine and
 ``save`` / ``load`` checkpoint it (``surgery`` edits compiled plans).
+
+Beside the engine (every entry point takes ``device=``, default CUDA device
+0): ``learn`` fits potentials (``fit_mle``, ``fit_mle_missing``, ``fit_em``;
+expected counts are gradients of logZ, and on a big-clique model the
+gradient goes through the CUDA kernel), ``learn_chain.fit_mle_chain`` fits
+long chains, ``sampling.engine_sample(engine, seed, n)`` draws exact
+posterior samples, ``chow_liu(data)`` learns a tree structure,
+``MarginalMapSolver`` / ``marginal_map`` / ``tree.marginal_map`` answer
+Marginal MAP, ``CutsetEngine`` serves dense models by cutset conditioning,
+and ``LoopyEngine`` runs loopy belief propagation on the raw factor graph.
 """
 
+from . import approx, cutset, learn, learn_chain, mmap, sampling, structure
 from .api import CliqueGraph, FactorGraph, JunctionTree, create_junction_tree
+from .approx import LoopyEngine
 from .config import DEFAULT, Config
 from .convert import (
+    chain_params_from_numpy,
     chain_stack_from_numpy,
+    cutset_engine_from_numpy,
     engine_from_numpy,
     fused_stacks_from_numpy,
+    loopy_engine_from_numpy,
     session_from_numpy,
+    thetas_from_numpy,
 )
+from .cutset import CutsetEngine, choose_cutset
 from .evidence import batch_masks, batch_masks_sparse, random_evidence_batch
 from .executor import Engine, batched_propagate_program, evidence_to_masks
 from .incremental import IncrementalSession
 from .joint import mutual_information_from_joint, steiner_subtree
+from .mmap import MarginalMapSolver, marginal_map
 from .ops.factored_contract import (
     big_clique_sep_message,
     factored_masked_contract,
@@ -48,6 +66,7 @@ from .ops.factored_contract import (
 )
 from .ops.semirings import LOG_SUM_EXP, MAX_PRODUCT, SEMIRINGS, SUM_PRODUCT
 from .schedule import Plan, compile_plan, load_plan, plan_from_json
+from .structure import chow_liu
 from .surgery import (
     add_factor,
     change_root,
@@ -65,6 +84,12 @@ __all__ = [
     "CliqueGraph",
     "JunctionTree",
     "Engine",
+    "LoopyEngine",
+    "CutsetEngine",
+    "choose_cutset",
+    "chow_liu",
+    "MarginalMapSolver",
+    "marginal_map",
     "Config",
     "DEFAULT",
     "Plan",
@@ -75,6 +100,10 @@ __all__ = [
     "chain_stack_from_numpy",
     "fused_stacks_from_numpy",
     "session_from_numpy",
+    "thetas_from_numpy",
+    "chain_params_from_numpy",
+    "cutset_engine_from_numpy",
+    "loopy_engine_from_numpy",
     "IncrementalSession",
     "steiner_subtree",
     "mutual_information_from_joint",

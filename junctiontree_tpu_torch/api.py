@@ -150,6 +150,32 @@ class JunctionTree:
             )
         return self._engines[key]
 
+    def marginal_map(
+        self,
+        values: Sequence[np.ndarray],
+        map_vars: Sequence,
+        evidence: Optional[Dict] = None,
+        device=None,
+    ):
+        """Exact Marginal MAP over ``map_vars`` (max over them, sum over
+        the rest) given hard evidence, on ``device`` (default CUDA device
+        0).  Builds a dedicated constrained (sum-before-max) solver: MMAP is
+        not computable on this tree's free elimination order; see
+        ``mmap.MarginalMapSolver`` for serving.
+
+        Returns ({map var label: state}, log MMAP value)."""
+        from .mmap import MarginalMapSolver
+
+        plan = self._plan
+        solver = MarginalMapSolver(
+            [plan.table.labels_of(f) for f in plan.factors],
+            {plan.table.label_of(v): plan.sizes[v]
+             for v in range(plan.num_vars)},
+            map_vars,
+            device=device,
+        )
+        return solver.set_potentials(values).query(evidence)
+
     def propagate(
         self,
         values: Sequence[np.ndarray],

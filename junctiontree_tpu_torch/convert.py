@@ -10,18 +10,28 @@ read are functions of the same arrays.  A max-product engine takes its
 potentials in log space (``semiring=MAX_PRODUCT``), as the JAX engine's MAP
 sibling holds them; an incremental session takes its cached collect
 messages and their rescale offsets (:func:`session_from_numpy`).
+
+The learners and the solvers beside the ``Engine`` start from host arrays
+too: per-factor log-potentials (:func:`thetas_from_numpy`, and packed for
+the chain learner by :func:`chain_params_from_numpy`), and the factor
+lists, values and settings that a ``CutsetEngine`` or ``LoopyEngine`` of the
+JAX package holds as numpy (:func:`cutset_engine_from_numpy`,
+:func:`loopy_engine_from_numpy`).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from .executor import Engine
+from .approx import LoopyEngine
+from .cutset import CutsetEngine
+from .executor import Engine, resolve_device
 from .incremental import IncrementalSession
 from .fused import build_fused_schedule, stack_group_potentials
+from .learn_chain import _ChainParams
 from .ops.semirings import SUM_PRODUCT, Semiring
 from .scan_executor import ChainLayout, stack_chain_potentials
 from .schedule import plan_from_json
@@ -78,4 +88,57 @@ def session_from_numpy(
             [None if u is None else engine._place(np.array(u)) for u in ups],
             [None if o is None else engine._place(np.array(o)) for o in offs],
         ),
+    )
+
+
+def thetas_from_numpy(
+    thetas: Sequence[np.ndarray], device=None,
+    dtype: torch.dtype = torch.float32,
+) -> List[torch.Tensor]:
+    """Per-factor log-potentials as tensors on ``device`` (default CUDA
+    device 0) in ``dtype``: what ``learn.log_likelihood`` and
+    ``learn.marginal_log_likelihood`` take."""
+    device = resolve_device(device)
+    return [
+        torch.as_tensor(np.asarray(t), dtype=dtype, device=device) for t in thetas
+    ]
+
+
+def chain_params_from_numpy(
+    plan_json: str, thetas: Sequence[np.ndarray], device=None,
+    dtype: torch.dtype = torch.float32,
+) -> Dict[str, torch.Tensor]:
+    """The chain learner's packed parameter groups (``pair`` [n, K, K],
+    ``head`` and ``tail`` [n, K]) on ``device``, from per-factor
+    log-potentials of a uniform-chain plan."""
+    plan = plan_from_json(plan_json)
+    layout = ChainLayout.detect(plan)
+    if layout is None:
+        raise ValueError("the plan is not a uniform chain")
+    return _ChainParams(plan, layout).pack(thetas, resolve_device(device), dtype)
+
+
+def cutset_engine_from_numpy(
+    factors, sizes, values: Sequence[np.ndarray], cutset, device=None,
+    dtype: torch.dtype = torch.float32, **settings,
+) -> CutsetEngine:
+    """A :class:`CutsetEngine` on ``device`` conditioning on the given
+    ``cutset`` (the one another engine chose: nothing is searched again);
+    ``settings`` are the constructor's (``state_chunk``,
+    ``chunk_budget_bytes``)."""
+    return CutsetEngine(
+        factors, sizes, [np.asarray(v) for v in values], cutset=list(cutset),
+        device=device, dtype=dtype, **settings,
+    )
+
+
+def loopy_engine_from_numpy(
+    factors, sizes, values: Sequence[np.ndarray], device=None, **settings,
+) -> LoopyEngine:
+    """A :class:`LoopyEngine` on ``device`` serving the given factor values;
+    ``settings`` are the constructor's (``damping``, ``max_iters``, ``tol``,
+    ``chunk_iters``)."""
+    return LoopyEngine(
+        factors, sizes, [np.asarray(v) for v in values], device=device,
+        **settings,
     )

@@ -1184,6 +1184,8 @@ class Engine:
             "factored_masked_contract": factored_masked_contract.launches,
             "factored_masked_contract_bf16":
                 factored_masked_contract.launches_bf16,
+            "factored_masked_contract_backward":
+                factored_masked_contract.launches_backward,
             "big_clique_route_calls": big_clique_sep_message.calls,
         }
         return st

@@ -104,22 +104,11 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def factored_masked_contract(
-    pot: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor
+def _launch_kernel(
+    pot: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, backward: bool = False
 ) -> torch.Tensor:
-    """out[b, c] = sum_{r1, r2} pot[r1, r2, c] * w1[b, r1] * w2[b, r2].
-
-    pot: [R1, R2, C], w1: [B, R1], w2: [B, R2]; float32 or bfloat16 on the
-    card (any bf16 input puts pot and w2 in bf16; w1 is read as f32; the
-    accumulator and the [B, C] output are f32).  With C <= 32 the kernel
-    reads pot as [R2, R1*C] rows: a pot that is a ``permute(1, 0, 2)`` view
-    of a contiguous [R2, R1, C] tensor, as :func:`big_clique_sep_message`
-    passes it, is used as it is, and any other is copied once.  CPU tensors
-    take :func:`reference_factored_contract`.  Each kernel launch adds one
-    to ``factored_masked_contract.launches``, and one with bf16 inputs also
-    to ``factored_masked_contract.launches_bf16``."""
-    if not pot.is_cuda:
-        return reference_factored_contract(pot, w1, w2)
+    """Check the operands and launch the CUDA kernel once (CUDA tensors
+    only).  Returns the float32 [B, C] result; counts the launch."""
     if pot.dim() != 3 or w1.dim() != 2 or w2.dim() != 2:
         raise ValueError("expected pot [R1, R2, C], w1 [B, R1], w2 [B, R2]")
     R1, R2, C = (int(d) for d in pot.shape)
@@ -176,11 +165,137 @@ def factored_masked_contract(
         )
     factored_masked_contract.launches += 1
     factored_masked_contract.launches_bf16 += int(bf16)
+    factored_masked_contract.launches_backward += int(backward)
     return out
+
+
+def _contract_on_device(pot, w1, w2, backward=False):
+    """The contraction where the tensors lie: the kernel on the card, the
+    plain version on the CPU (and on meta tensors)."""
+    if pot.is_cuda:
+        return _launch_kernel(pot, w1, w2, backward)
+    return reference_factored_contract(pot, w1, w2)
+
+
+# rows of (w1 (x) g) held at once by the potential's gradient, in elements
+DPOT_CHUNK_ELEMS = 1 << 26
+
+
+def _contract_grads(contract, pot, w1, w2, g, needs=(True, True, True)):
+    """Gradients of ``out = contract(pot, w1, w2)`` given ``g = dL/dout``
+    [B, C], for the inputs ``needs`` names; the others come back ``None``.
+
+    ``dw1`` and ``dw2`` are the same contraction on a permuted potential,
+    with ``g`` in ``w1``'s place (the kernel reads ``w1`` in float32 and
+    loops or tiles over its axis, and sums over ``w2``'s axis in its inner
+    loop):
+
+        dw1[b, r1] = sum_{c, r2} pot[r1, r2, c] g[b, c] w2[b, r2]
+                   = contract(pot.permute(2, 1, 0), g, w2)
+        dw2[b, r2] = sum_{c, r1} pot[r1, r2, c] g[b, c] w1[b, r1]
+                   = contract(pot.permute(2, 0, 1), g, w1)
+
+    (``dw2`` could also put ``g`` in ``w2``'s place, with an inner loop of
+    only C elements; the card measured it slower, ``PERF.md``.)  The
+    potential's gradient is not this contraction but one matrix product,
+
+        dpot[r1, r2, c] = sum_b w1[b, r1] g[b, c] w2[b, r2]
+                        = ((w1 (x) g) [B, R1*C])^T @ w2 [B, R2],
+
+    taken over ranges of r1 so that ``w1 (x) g`` stays under
+    ``DPOT_CHUNK_ELEMS`` elements."""
+    R1, R2, C = (int(d) for d in pot.shape)
+    B = int(w1.shape[0])
+    dpot = dw1 = dw2 = None
+    if needs[1]:
+        dw1 = contract(pot.permute(2, 1, 0), g, w2).to(w1.dtype)
+    if needs[2]:
+        dw2 = contract(pot.permute(2, 0, 1), g, w1).to(w2.dtype)
+    if needs[0]:
+        dt = torch.promote_types(pot.dtype, g.dtype)
+        step = max(1, DPOT_CHUNK_ELEMS // max(1, B * C))
+        w2t = w2.to(dt)
+        parts = []
+        for lo in range(0, R1, step):
+            wg = (w1[:, lo:lo + step, None].to(dt) * g[:, None, :].to(dt))
+            n = wg.shape[1]
+            parts.append(
+                torch.matmul(wg.reshape(B, n * C).t(), w2t).reshape(n, C, R2)
+            )
+        dpot = (parts[0] if len(parts) == 1 else torch.cat(parts))
+        dpot = dpot.permute(0, 2, 1).to(pot.dtype)
+    return dpot, dw1, dw2
+
+
+def factored_contract_grads(
+    pot: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, g: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the contraction's backward pass: ``(dpot, dw1, dw2)``
+    for upstream ``g`` [B, C], from :func:`reference_factored_contract` and
+    ``torch.matmul`` alone.  The tests and the card's comparison use it;
+    the training path uses :class:`_FactoredContract`."""
+    return _contract_grads(reference_factored_contract, pot, w1, w2, g)
+
+
+class _FactoredContract(torch.autograd.Function):
+    """The contraction with its gradient.  Forward and the two weight
+    gradients run :func:`_contract_on_device` (on the card: the kernel, each
+    launch counted, the backward ones also in ``.launches_backward``); a
+    gradient that no input asks for is not computed."""
+
+    @staticmethod
+    def forward(ctx, pot, w1, w2):
+        ctx.save_for_backward(pot, w1, w2)
+        return _contract_on_device(pot, w1, w2)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        pot, w1, w2 = ctx.saved_tensors
+
+        def contract(p, a, b):
+            return _contract_on_device(p, a, b, backward=True)
+
+        return _contract_grads(contract, pot, w1, w2, g, ctx.needs_input_grad)
+
+
+def factored_masked_contract(
+    pot: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor
+) -> torch.Tensor:
+    """out[b, c] = sum_{r1, r2} pot[r1, r2, c] * w1[b, r1] * w2[b, r2].
+
+    pot: [R1, R2, C], w1: [B, R1], w2: [B, R2]; float32 or bfloat16 on the
+    card (any bf16 input puts pot and w2 in bf16; w1 is read as f32; the
+    accumulator and the [B, C] output are f32).  With C <= 32 the kernel
+    reads pot as [R2, R1*C] rows: a pot that is a ``permute(1, 0, 2)`` view
+    of a contiguous [R2, R1, C] tensor, as :func:`big_clique_sep_message`
+    passes it, is used as it is, and any other is copied once.  CPU tensors
+    take :func:`reference_factored_contract`.
+
+    When an input requires a gradient the call goes through a
+    ``torch.autograd.Function`` on every device: ``dw1`` and ``dw2`` are
+    this contraction again on a permuted potential (on the card: the
+    kernel), ``dpot`` is one matrix product (:func:`_contract_grads`).
+    bfloat16 is a serving dtype: a bf16 input that requires a gradient
+    raises.
+
+    Each kernel launch adds one to ``factored_masked_contract.launches``;
+    one with bf16 inputs also to ``.launches_bf16``, one made by a backward
+    pass also to ``.launches_backward``."""
+    operands = (pot, w1, w2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        if any(t.dtype == torch.bfloat16 and t.requires_grad for t in operands):
+            raise TypeError(
+                "a bfloat16 input requires a gradient: bfloat16 is a storage "
+                "dtype for serving; learn in float32 or float64"
+            )
+        return _FactoredContract.apply(pot, w1, w2)
+    return _contract_on_device(pot, w1, w2)
 
 
 factored_masked_contract.launches = 0
 factored_masked_contract.launches_bf16 = 0
+factored_masked_contract.launches_backward = 0
 
 
 def build_weight_groups(

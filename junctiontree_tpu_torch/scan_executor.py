@@ -121,6 +121,84 @@ def stack_chain_potentials(
     )
 
 
+def _rescaled_step(x, mat, out=None, s_out=None):
+    """One rescaled chain step: ``x @ mat`` divided by its floored row
+    maximum; returns (result, maxima [B, 1]).  With ``out`` / ``s_out`` (rows
+    of preallocated stacks) both are written in place; without them the step
+    is functional, as autograd needs it."""
+    y = torch.matmul(x, mat)
+    if out is None:
+        s = y.amax(dim=-1, keepdim=True).clamp_min(_TINY)
+        return y / s, s
+    if s_out is None:
+        s = y.amax(dim=-1, keepdim=True).clamp_(min=_TINY)
+    else:
+        s = torch.amax(y, dim=-1, keepdim=True, out=s_out).clamp_(min=_TINY)
+    return torch.div(y, s, out=out), s
+
+
+def _chain_forward(layout: ChainLayout, A: torch.Tensor, masks):
+    """Forward pass of the chain program: ``(M, F_all, logZ, functional)``
+    with the stacked masks ``M`` and forward messages ``F_all``, both
+    [m+1, B, K].  When ``A`` requires a gradient (and gradients are on) every
+    step is functional and the stacks are ``torch.stack`` of the steps; else
+    the steps write into preallocated stacks in place."""
+    m, K = len(layout.clique_order), layout.card
+    dtype, device = A.dtype, A.device
+    if isinstance(masks, dict):
+        chain_pos = {v: k for k, v in enumerate(layout.var_order)}
+        B = next(iter(masks.values())).shape[0] if masks else 1
+        # ones everywhere, the (few) observed variables written by index
+        M = torch.ones((m + 1, B, K), dtype=dtype, device=device)
+        if masks:
+            at = torch.tensor(
+                [chain_pos[v] for v in masks], dtype=torch.long, device=device
+            )
+            M[at] = torch.stack(
+                [mk.to(dtype=dtype, device=device) for mk in masks.values()]
+            )
+    else:
+        M = masks.to(dtype=dtype, device=device)
+        B = M.shape[1]
+    functional = A.requires_grad and torch.is_grad_enabled()
+    F_all = scale = None
+    F_rows = s_rows = [None] * (m + 1)
+    if not functional:
+        F_all = torch.empty((m + 1, B, K), dtype=dtype, device=device)
+        scale = torch.empty((m, B, 1), dtype=dtype, device=device)
+        F_all[0] = 1.0
+        F_rows, s_rows = F_all.unbind(0), scale.unbind(0)
+    # one unbind each, not one index per step (and per backward step)
+    Ms, As = M.unbind(0), A.unbind(0)
+    # each step's max lands in `scale`, whose logs sum to the logZ offset
+    Fs = [torch.ones((B, K), dtype=dtype, device=device) if functional
+          else F_rows[0]]
+    ss = []
+    for k in range(m):
+        f, s = _rescaled_step(Fs[-1] * Ms[k], As[k], F_rows[k + 1], s_rows[k])
+        Fs.append(f)
+        ss.append(s)
+    if functional:
+        F_all, scale = torch.stack(Fs), torch.stack(ss)
+    zfin = (F_all[m] * M[m]).sum(dim=-1)
+    logz = torch.where(
+        zfin > 0, torch.log(zfin.clamp_min(_TINY)),
+        torch.full_like(zfin, -float("inf")),
+    ) + torch.log(scale).sum(dim=0)[:, 0]
+    return M, F_all, logz, functional
+
+
+def chain_logz_program(plan: Plan, layout: ChainLayout):
+    """Build ``fn(A, masks) -> logZ [B]``: the forward half of
+    :func:`chain_posterior_program` (same arguments).  What a learner
+    differentiates: logZ needs no backward messages and no posteriors."""
+
+    def fn(A: torch.Tensor, masks):
+        return _chain_forward(layout, A, masks)[2]
+
+    return fn
+
+
 def chain_posterior_program(plan: Plan, layout: ChainLayout):
     """Build ``fn(A, masks) -> (stacked posteriors [m+1, B, K], logZ [B])``.
 
@@ -129,58 +207,27 @@ def chain_posterior_program(plan: Plan, layout: ChainLayout):
     -> [B, K] linear-space mask (observed vars only), or a prestacked
     [m+1, B, K] mask tensor in chain order (dense evidence).  The posteriors
     come back stacked in chain order; :class:`StackedPosteriors` maps var
-    ids to positions."""
+    ids to positions.  The program is differentiable in ``A``: it updates
+    its stacks in place unless ``A`` requires a gradient."""
     m = len(layout.clique_order)
-    K = layout.card
-    chain_pos = {v: k for k, v in enumerate(layout.var_order)}
 
     def fn(A: torch.Tensor, masks):
-        dtype, device = A.dtype, A.device
-        if isinstance(masks, dict):
-            B = next(iter(masks.values())).shape[0] if masks else 1
-            # ones everywhere, the (few) observed variables written by index
-            M = torch.ones((m + 1, B, K), dtype=dtype, device=device)
-            if masks:
-                at = torch.tensor(
-                    [chain_pos[v] for v in masks], dtype=torch.long, device=device
-                )
-                M[at] = torch.stack(
-                    [mk.to(dtype=dtype, device=device) for mk in masks.values()]
-                )
-        else:
-            M = masks.to(dtype=dtype, device=device)
-            B = M.shape[1]
-        At = A.transpose(1, 2)
-        F_all = torch.empty((m + 1, B, K), dtype=dtype, device=device)
-        G_all = torch.empty((m + 1, B, K), dtype=dtype, device=device)
-        scale = torch.empty((m, B, 1), dtype=dtype, device=device)
-
-        # forward: each step's max lands in `scale`, whose logs sum to the
-        # logZ offset after the loop
-        F_all[0] = 1.0
-        for k in range(m):
-            Fn = torch.matmul(F_all[k] * M[k], A[k])
-            s = scale[k]
-            torch.amax(Fn, dim=-1, keepdim=True, out=s)
-            s.clamp_(min=_TINY)
-            torch.div(Fn, s, out=F_all[k + 1])
-
-        G_all[m] = 1.0
+        M, F_all, logz, functional = _chain_forward(layout, A, masks)
+        Ats, Ms = A.transpose(1, 2).unbind(0), M.unbind(0)
+        G_all = None if functional else torch.empty_like(F_all)
+        G_rows = [None] * (m + 1) if functional else G_all.unbind(0)
+        Gs = [torch.ones_like(F_all[m])] * (m + 1)
+        if not functional:
+            G_all[m] = 1.0
+            Gs[m] = G_rows[m]
         for k in range(m - 1, -1, -1):
-            Gp = torch.matmul(M[k + 1] * G_all[k + 1], At[k])
-            s = Gp.amax(dim=-1, keepdim=True).clamp_(min=_TINY)
-            torch.div(Gp, s, out=G_all[k])
-
-        # posteriors per chain position, normalized (scales cancel); the
-        # last position's sum is the forward pass's Z, since G_m = 1
+            Gs[k], _ = _rescaled_step(Ms[k + 1] * Gs[k + 1], Ats[k], G_rows[k])
+        # posteriors per chain position, normalized (scales cancel)
+        if functional:
+            post = F_all * M * torch.stack(Gs)
+            return post / post.sum(dim=-1, keepdim=True).clamp_min(_TINY), logz
         post = F_all.mul_(M).mul_(G_all)
-        tot = post.sum(dim=-1, keepdim=True)
-        zfin = tot[m, :, 0]
-        logz = torch.where(
-            zfin > 0, torch.log(zfin.clamp_min(_TINY)),
-            torch.full_like(zfin, -float("inf")),
-        ) + torch.log(scale).sum(dim=0)[:, 0]
-        return post.div_(tot.clamp_min(_TINY)), logz
+        return post.div_(post.sum(dim=-1, keepdim=True).clamp_min(_TINY)), logz
 
     return fn
 

@@ -22,10 +22,12 @@ import time
 SHAPES = [(64, 2048, 2, 4096), (64, 4096, 1, 4096)]  # (R1, R2, C, B)
 
 
-def device_ms(fn, iters=20, repeats=5):
+def device_ms(fn, iters=20, repeats=5, spin_cycles=20_000_000):
     """Device milliseconds of one ``fn()``: CUDA events around ``iters``
     calls queued behind a spin kernel, so that the host runs ahead and its
-    own time per call does not count; median of ``repeats``."""
+    own time per call does not count; median of ``repeats``.  The spin
+    (``spin_cycles``, 20 million: about 10 ms of device time) must outlast
+    the host's time to queue all ``iters`` calls."""
     import torch
 
     for _ in range(3):
@@ -35,7 +37,7 @@ def device_ms(fn, iters=20, repeats=5):
     for _ in range(repeats):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(20_000_000)  # about 10 ms of device time
+        torch.cuda._sleep(spin_cycles)
         a.record()
         for _ in range(iters):
             fn()

@@ -145,7 +145,7 @@ def test_describe():
         assert d["process_phase_totals_s"][key] >= 0.0, key
     assert set(d["kernel_launches"]) == {
         "factored_masked_contract", "factored_masked_contract_bf16",
-        "big_clique_route_calls"}
+        "factored_masked_contract_backward", "big_clique_route_calls"}
     assert all(isinstance(n, int) and n >= 0
                for n in d["kernel_launches"].values())
     for key in ("cold_start_serving", "kernel_routing"):

@@ -493,3 +493,261 @@ def test_load_on_cuda_and_multiply_factor(cuda, tmp_path):
     _, z2 = cpu.posterior_batch(masks)
     np.testing.assert_allclose(z1.cpu().double(), z2, atol=1e-4)
     assert eng.describe()["device"].startswith("cuda")
+
+
+# -- the kernel's gradient, learning and the solvers beside the engine ------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "R1,R2,C,B",
+    [(64, 2048, 2, 4096), (64, 4096, 1, 4096),   # the serving shapes
+     (8, 40, 1, 50), (4, 37, 33, 130), (3, 50, 64, 33),   # C = 1, 33, 64
+     (1, 512, 8, 100),    # R1 = 1
+     (3, 37, 3, 130),     # unaligned rows
+     (16, 64, 2, 1)],     # B = 1
+)
+def test_function_gradients_match_autograd_of_plain(cuda, R1, R2, C, B):
+    """The three gradients of the autograd Function (dw1, dw2: the kernel on
+    a permuted potential; dpot: one matrix product) within 1e-5 of max|grad|
+    of ``torch.autograd.grad`` of the plain version, two kernel launches
+    counted as backward launches, two runs bitwise equal."""
+    g = torch.Generator(device=cuda).manual_seed(R1 * 7 + R2 + C + B)
+    mk = lambda *s: torch.rand(s, generator=g, device=cuda)
+    pot, w1, w2, up = mk(R1, R2, C), mk(B, R1), mk(B, R2), mk(B, C)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_(True) for t in (pot, w1, w2)]
+        out = fn(*leaves)
+        assert out.grad_fn is not None
+        return torch.autograd.grad(out, leaves, up)
+
+    k1 = fc.factored_masked_contract
+    before, back = k1.launches, k1.launches_backward
+    got = grads(k1)
+    torch.cuda.synchronize()
+    assert k1.launches == before + 3 and k1.launches_backward == back + 2
+    want = grads(fc.reference_factored_contract)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert _rel_err(a, b) <= 1e-5
+    for a, b in zip(got, grads(k1)):
+        assert torch.equal(a, b)
+    for a, b in zip(fc.factored_contract_grads(pot, w1, w2, up), want):
+        assert _rel_err(a, b) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_function_skips_gradients_nobody_asks_for(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    pot, w1, w2 = (torch.rand(s, generator=g, device=cuda)
+                   for s in ((8, 64, 2), (40, 8), (40, 64)))
+    k1 = fc.factored_masked_contract
+    pot.requires_grad_(True)
+    before, back = k1.launches, k1.launches_backward
+    out = k1(pot, w1, w2)
+    (dpot,) = torch.autograd.grad(out.sum(), [pot])
+    assert k1.launches == before + 1 and k1.launches_backward == back
+    ref = pot.detach().clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(
+        fc.reference_factored_contract(ref, w1, w2).sum(), [ref])
+    assert _rel_err(dpot, want) <= 1e-5
+    with torch.no_grad():
+        assert k1(pot, w1, w2).grad_fn is None
+
+
+@pytest.mark.cuda
+def test_bf16_input_requiring_grad_raises_on_cuda(cuda):
+    pot = torch.rand((4, 32, 2), device=cuda)
+    w1, w2 = torch.rand((8, 4), device=cuda), torch.rand((8, 32), device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fc.factored_masked_contract(
+            pot.to(torch.bfloat16).requires_grad_(True), w1, w2)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fc.factored_masked_contract(
+            pot, w1, w2.to(torch.bfloat16).requires_grad_(True))
+
+
+@pytest.mark.cuda
+def test_gradient_flows_through_big_clique_sep_message(cuda):
+    """A clique of 2^10 states with masks on rest and separator variables,
+    a rest-scoped message and ``w2`` expanded over the unobserved rest
+    variables: the gradient w.r.t. the potential, the masks and the message
+    against float64 autograd of the same call (which takes the plain
+    version), limit 1e-4 of max|grad|."""
+    rng = np.random.default_rng(0)
+    cvars = list(range(10))
+    B = 64
+    pot = rng.random((2,) * 10) + 0.1
+    masks = {1: rng.random((B, 2)) + 0.1, 8: rng.random((B, 2)) + 0.1}
+    msg = rng.random((B, 2, 2)) + 0.1
+    sep = [8, 9]
+
+    def run(dtype):
+        leaves = [torch.tensor(x, dtype=dtype, device=cuda, requires_grad=True)
+                  for x in (pot, masks[1], masks[8], msg)]
+        out = fc.big_clique_sep_message(
+            leaves[0], cvars, {1: leaves[1], 8: leaves[2]}, sep,
+            msgs=[((0, 2), leaves[3])])
+        return out, torch.autograd.grad((out ** 2).sum(), leaves)
+
+    k1 = fc.factored_masked_contract
+    before, back = k1.launches, k1.launches_backward
+    out, got = run(torch.float32)
+    assert k1.launches == before + 3 and k1.launches_backward == back + 2
+    ref, want = run(torch.float64)
+    assert k1.launches == before + 3
+    assert _rel_err(out.double(), ref) <= 1e-5
+    for a, b in zip(got, want):
+        assert _rel_err(a.double(), b) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_expected_counts_route_through_kernel(cuda, monkeypatch):
+    """``learn.expected_counts`` on a dense clique with tails, the route
+    lowered to 2^8 states: forward and backward launches, counts within
+    1e-4 of the float64 run (the plain version)."""
+    from junctiontree_tpu_torch import learn
+
+    monkeypatch.setattr(DEFAULT, "big_clique_min_states", 1 << 8)
+    rng = np.random.default_rng(0)
+    n = 9
+    names = [f"v{i}" for i in range(n)]
+    tails = [f"t{i}" for i in range(n)]
+    factors = [names[:]] + [[x] for x in names] + [[x, t] for x, t in zip(names, tails)]
+    sizes = {x: 2 for x in names + tails}
+    values = [rng.random((2,) * n) + 0.1] + [rng.random(2) + 0.1 for _ in names] \
+        + [rng.random((2, 2)) + 0.1 for _ in tails]
+    plan = jt.compile_plan(factors, sizes)
+    data = rng.integers(0, 2, size=(200, plan.num_vars))
+    data[rng.random(data.shape) < 0.3] = -1
+    masks = learn.masks_from_data(plan, data)
+    k1 = fc.factored_masked_contract
+    before, back = k1.launches, k1.launches_backward
+    counts = learn.expected_counts(plan, values, masks, device=cuda)
+    assert k1.launches - before > k1.launches_backward - back > 0
+    mid = k1.launches
+    want = learn.expected_counts(plan, values, masks, device=cuda,
+                                 dtype=torch.float64)
+    assert k1.launches == mid  # float64 takes the plain version
+    for c, w in zip(counts, want):
+        np.testing.assert_allclose(c, w, rtol=1e-4, atol=1e-4)
+    thetas, hist = learn.fit_mle_missing(plan, data, steps=3, device=cuda)
+    assert hist[-1] > hist[0] and k1.launches > mid
+
+
+@pytest.mark.cuda
+def test_chain_program_under_grad_on_cuda(cuda):
+    """The chain program with a gradient (functional steps) equals its
+    in-place value bit for bit on the card, and the chain learner steps."""
+    from junctiontree_tpu_torch.learn_chain import (
+        chain_masks_from_data, fit_mle_chain)
+    from junctiontree_tpu_torch.models import chain_bn_model
+    from junctiontree_tpu_torch.scan_executor import (
+        ChainLayout, chain_posterior_program)
+
+    factors, sizes, values = chain_bn_model(60, card=3, seed=2)
+    plan = jt.compile_plan(factors, sizes)
+    layout = ChainLayout.detect(plan)
+    eng = jt.Engine(plan, device=cuda).set_potentials(values)
+    A = torch.tensor(jt.chain_stack_from_numpy(plan.to_json(), eng._pots_np),
+                     dtype=torch.float32, device=cuda)
+    rng = np.random.default_rng(1)
+    data = rng.integers(0, 3, size=(32, 60))
+    data[rng.random(data.shape) < 0.4] = -1
+    M = torch.tensor(chain_masks_from_data(plan, layout, data), device=cuda)
+    prog = chain_posterior_program(plan, layout)
+    post0, logz0 = prog(A, M)
+    post1, logz1 = prog(A.clone().requires_grad_(True), M)
+    assert post1.requires_grad
+    assert torch.equal(post1.detach(), post0) and torch.equal(logz1.detach(), logz0)
+    _, hist = fit_mle_chain(plan, data, steps=3, device=cuda)
+    assert hist[-1] > hist[0]
+
+
+@pytest.mark.cuda
+def test_cutset_on_cuda_impossible_rows_and_cpu_parity(cuda):
+    from junctiontree_tpu_torch.models import grid_mrf_model
+
+    factors, sizes, values = grid_mrf_model(4, 4, seed=0)
+    names = list(sizes)
+    cut = [names[5], names[10]]
+    m = np.ones((4, 2), dtype=np.float32)
+    m[1] = 0.0
+    m[2] = [0.0, 1.0]
+    on_cut = np.ones((4, 2), dtype=np.float32)
+    on_cut[3] = 0.0
+    masks = {names[0]: m, names[5]: on_cut}
+    ce = jt.CutsetEngine(factors, sizes, values, cutset=cut, device=cuda,
+                         state_chunk=3)
+    ref = jt.CutsetEngine(factors, sizes, values, cutset=cut, device="cpu",
+                          dtype=torch.float64)
+    want, want_logz = ref.posterior_batch(masks)
+    for mode in ("auto", "message", "fused"):
+        got, logz = ce.posterior_batch(masks, mode=mode)
+        assert logz.device.type == "cuda"
+        assert bool(torch.isneginf(logz[1])) and bool(torch.isneginf(logz[3]))
+        np.testing.assert_allclose(logz.cpu().numpy()[[0, 2]],
+                                   want_logz.numpy()[[0, 2]], rtol=1e-5)
+        for v in sizes:
+            p = got[v].cpu().numpy()
+            assert (p[[1, 3]] == 0).all() and not np.isnan(p).any(), (mode, v)
+            np.testing.assert_allclose(p, want[v].numpy(), rtol=1e-4, atol=1e-6)
+    a, s = ce.map_assignment_batch(masks)
+    ra, rs = ref.map_assignment_batch(masks)
+    np.testing.assert_allclose(s[[0, 2]], rs[[0, 2]], rtol=1e-5)
+    assert s[1] < -1e29 and s[3] < -1e29
+
+
+@pytest.mark.cuda
+def test_sampler_is_deterministic_on_a_cuda_generator(cuda):
+    from junctiontree_tpu_torch.models import sprinkler_model
+    from junctiontree_tpu_torch.sampling import engine_sample
+
+    f, s, v = sprinkler_model()
+    tree = jt.create_junction_tree(f, s)
+    eng = tree.engine(device=cuda).set_potentials(v)
+    a = engine_sample(eng, torch.Generator(device=cuda).manual_seed(5), 20000)
+    b = engine_sample(eng, 5, 20000)
+    np.testing.assert_array_equal(a, b)
+    post, _ = eng.query({})
+    for vid in range(4):
+        p = post[vid][1]
+        assert abs(a[:, vid].mean() - p) <= 5 * np.sqrt(p * (1 - p) / 20000) + 1e-3
+    with pytest.raises(ValueError, match="generator"):
+        engine_sample(eng, torch.Generator().manual_seed(5), 10)
+
+
+@pytest.mark.cuda
+def test_mmap_loopy_and_chow_liu_on_cuda_match_cpu(cuda):
+    from junctiontree_tpu_torch.models import grid_mrf_model
+
+    factors, sizes, values = grid_mrf_model(4, 4, seed=3)
+    names = list(sizes)
+    B = 16
+    plan = jt.compile_plan(factors, sizes)
+    evs = jt.random_evidence_batch(plan, B, names[8:10], seed=1)
+    masks = jt.batch_masks_sparse(plan, evs)
+    lm = {k: np.where(m > 0, 0.0, -np.inf).astype(np.float32) for k, m in masks.items()}
+    out = {}
+    for dev in (cuda, "cpu"):
+        solver = jt.MarginalMapSolver(factors, sizes, names[:4], device=dev)
+        out[str(dev)] = solver.set_potentials(values).query_batch(lm)
+    (a, s), (ca, cs) = out["cuda"], out["cpu"]
+    assert a.device.type == "cuda" and a.dtype == torch.int32
+    np.testing.assert_allclose(s.cpu().numpy(), cs.numpy(), rtol=1e-5)
+    assert torch.equal(a.cpu(), ca)
+    res = {}
+    for dev in (cuda, "cpu"):
+        eng = jt.LoopyEngine(factors, sizes, values, tol=0.0, max_iters=50, device=dev)
+        res[str(dev)] = eng.posterior_batch(masks)
+    (p, z, _), (cp, cz, _) = res["cuda"], res["cpu"]
+    np.testing.assert_allclose(z.cpu().numpy(), cz.numpy(), rtol=1e-4, atol=1e-4)
+    for v in range(len(names)):
+        np.testing.assert_allclose(p[v].cpu().numpy(), cp[v].numpy(), atol=1e-4)
+    data = np.random.default_rng(0).integers(0, 3, size=(500, 5))
+    got = jt.chow_liu(data, device=cuda)
+    want = jt.chow_liu(data, device="cpu")
+    assert got[0] == want[0] and got[3] == want[3]
+    for x, y in zip(got[2], want[2]):
+        np.testing.assert_array_equal(x, y)

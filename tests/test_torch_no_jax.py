@@ -67,6 +67,41 @@ assert float(back.query({})[0][rain][1]) == 0.0
 plan2, covered = surgery.add_factor(tree.plan, ["rain"])
 assert covered and jt.add_factor is surgery.add_factor
 assert "kernel_launches" in eng.describe()
+# learning, sampling, structure, and the solvers beside the engine
+import torch
+from junctiontree_tpu_torch import learn, learn_chain, sampling
+samples = sampling.engine_sample(eng, 0, 400)
+assert samples.shape == (400, 4)
+thetas, hist = learn.fit_mle(tree.plan, samples, steps=3, device="cpu")
+assert hist[-1] > hist[0]
+holes = samples.copy()
+holes[::3, rain] = -1
+_, hist = learn.fit_mle_missing(tree.plan, holes, steps=3, device="cpu")
+assert hist[-1] > hist[0]
+counts = learn.expected_counts(
+    tree.plan, values, learn.masks_from_data(tree.plan, holes), device="cpu")
+assert all(abs(c.sum() - 400) < 1e-2 for c in counts)
+_, hist = learn.fit_em(tree.plan, holes, steps=2, device="cpu")
+assert len(hist) == 2
+cdata = sampling.engine_sample(ceng, 1, 50)
+_, hist = learn_chain.fit_mle_chain(ceng.plan, cdata, steps=3, device="cpu")
+assert hist[-1] > hist[0]
+f2, s2, v2, edges = jt.chow_liu(samples, labels=[tree.plan.table.label_of(i) for i in range(4)], device="cpu")
+assert len(edges) == 3
+assign, _ = jt.marginal_map(factors, values, sizes, ["rain"], {"wet_grass": 1}, device="cpu")
+assert assign == {"rain": 1}
+assert tree.marginal_map(values, ["rain"], {"wet_grass": 1}, device="cpu")[0] == assign
+cut = jt.CutsetEngine(factors, sizes, values, cutset=["rain"], device="cpu")
+cposts, clz = cut.posterior_batch({"wet_grass": wet})
+assert round(float(cposts["rain"][0, 1]), 4) == 0.7079
+assert abs(float(clz[0]) - float(logz[0])) < 1e-5
+assert cut.map_assignment({"wet_grass": 1})[0]["wet_grass"] == 1
+loopy = jt.LoopyEngine(factors, sizes, values, device="cpu")
+lposts, _, info = loopy.posterior({"wet_grass": 1})
+lrain = lposts[loopy.table.id_of("rain")]
+assert abs(float(lrain.sum()) - 1) < 1e-5 and float(lrain[1]) > 0.5  # approximate
+from junctiontree_tpu_torch.utils import bif, uai
+assert uai.parse_uai(uai.write_uai([[0, 1]], {0: 2, 1: 2}, [np.ones((2, 2))]))[0] == [[0, 1]]
 assert not any(m.startswith("junctiontree_tpu.") or m == "junctiontree_tpu"
                for m in sys.modules)
 print("ok")
@@ -82,3 +117,26 @@ def test_imports_and_serves_without_jax():
     )
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_no_module_of_the_port_names_jax():
+    """No source file of the package, nor ``chip_smoke.py``, imports ``jax``
+    or the JAX package (the nine modules of learning and the solvers
+    included)."""
+    import re
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    pkg = os.path.join(root, "junctiontree_tpu_torch")
+    files = [os.path.join(root, "chip_smoke.py")]
+    for d, _, names in os.walk(pkg):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    rel = {os.path.relpath(f, pkg) for f in files}
+    for mod in ("learn.py", "learn_chain.py", "sampling.py", "structure.py",
+                "mmap.py", "cutset.py", "approx.py", "utils/uai.py",
+                "utils/bif.py"):
+        assert mod in rel, mod
+    pat = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|optax|junctiontree_tpu)(\.|\s|$)", re.M)
+    for f in files:
+        with open(f) as fh:
+            assert not pat.search(fh.read()), f
