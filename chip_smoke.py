@@ -7,7 +7,27 @@ its plain PyTorch version at the shapes the serving path gives it (with its
 time beside the plain version's, one PyTorch ``einsum`` call's and the
 card's bound) and at edge shapes, then serves evidence batches through the
 public entry points (``create_junction_tree(...).engine(...)
-.set_potentials(...).posterior_batch(masks)``), one phase per path:
+.set_potentials(...).posterior_batch(masks)``), one phase per path.
+
+Right after the kernel's phases come the surface around the engine:
+
+* ``autotune``: ``ops/autotune.py`` times the kernel against the library on
+  each shape of the big clique's ``posterior_batch`` in float32 and
+  bfloat16 (a diagnostic), then that call runs in both dtypes with the
+  table filled, every contraction still launching the kernel, held to
+  float64;
+* ``precision``: ``hailfinder_like()`` with TF32 allowed by the caller,
+  held to float64, the caller's setting kept;
+* ``native_compile``: the 1,000-leaf star and the 5,000-chain planned by
+  the Python and the C++ compiler, the plans equal;
+* ``cli``: ``python -m junctiontree_tpu_torch`` in process on the big clique
+  written as a UAI file, MAR and PR held to float64;
+* ``memory_estimates``: ``max_feasible_batch`` for posteriors and tree-MAP
+  within an 8 GiB budget at the batch it returns and above it at twice
+  that, and the cutset engine's chunks within 1.25 x its budget.
+
+Every phase runs with the package's defaults, under which each big-clique
+contraction on the card launches the kernel; then:
 
 * ``big_clique_serving``: the single 2^18-state clique (18 binary variables,
   one dense factor plus 18 unaries, evidence on 12), B = 4096, float32:
@@ -85,21 +105,15 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-# published peaks of one H100 SXM: f32 outside the tensor cores, bf16 dense
-# on the tensor cores (operations a second), device memory (bytes a second)
-PEAK_F32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
-
-
 def kernel_bound_ms(R1, R2, C, B, bf16):
     """Least time the card could take for one contraction: the larger of
     its operations over the peak rate of their type and its bytes (each
-    input read once, the output written once) over the memory rate."""
-    ops = 2 * B * R1 * R2 * C + 2 * B * R1 * C
-    item = 2 if bf16 else 4
-    nbytes = item * (R1 * R2 * C + B * R2) + 4 * (B * R1 + B * C)
-    t_ops = ops / (PEAK_BF16 if bf16 else PEAK_F32) * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+    input read once, the output written once) over the memory rate
+    (``ops.autotune.contraction_bound``, one H100 SXM's published peaks)."""
+    from junctiontree_tpu_torch.ops.autotune import contraction_bound
+
+    _, _, ms, by = contraction_bound(R1, R2, C, B, bf16)
+    return ms, by
 
 
 def step_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -1158,6 +1172,7 @@ def phase_kernel_backward(dev, device_ms, host_us):
     import torch
 
     from junctiontree_tpu_torch.ops import factored_contract as fc
+    from junctiontree_tpu_torch.ops.autotune import PEAK_BYTES, PEAK_F32
 
     k1 = fc.factored_masked_contract
     g = torch.Generator(device=dev).manual_seed(1)
@@ -1514,7 +1529,7 @@ def phase_solvers(dev, hail, profile):
         cutset_reduced_max_clique_states=st["max_clique_states"],
         cutset_reduced_total_clique_states=st["total_clique_states"],
         cutset_chunk=chunk, cutset_chunk_budget_bytes=ce._chunk_budget,
-        cutset_reckoned_bytes_per_chunk=4 * Bc * st["max_clique_states"] * 2 * chunk,
+        cutset_reckoned_bytes_per_chunk=4 * Bc * st["total_clique_states"] * 2 * chunk,
         cutset_peak_mem_bytes=cpeak, cutset_step_ms=t_c,
         cutset_queries_per_s=Bc / t_c * 1e3,
         cutset_max_abs_err_vs_engine=cworst, cutset_rows_checked=rows,
@@ -1595,7 +1610,313 @@ def phase_solvers(dev, hail, profile):
     emit(line)
 
 
+def phase_autotune(dev, tree, values, masks, main_shapes):
+    """The kernel measured against the library on the card: one decision
+    per distinct shape of the big clique's ``posterior_batch`` in float32
+    and bfloat16 (the kernel's and the library's time, the winner, the
+    margin, and whether the entry was measured now or read back), then one
+    ``posterior_batch`` in each dtype with the table filled: every
+    contraction launches the kernel whatever the table says, and the
+    result is held to float64."""
+    import torch
+
+    from junctiontree_tpu_torch.config import DEFAULT
+    from junctiontree_tpu_torch.ops import autotune
+
+    require(DEFAULT.autotune, "measurement is off by default")
+    name = torch.cuda.get_device_name(dev)
+    for R1, R2, C, B in sorted(set(main_shapes)):
+        for dt in ("f32", "bf16"):
+            key = f"{dt}:{R1}x{R2}x{C}:B{B}:{name}"
+            had = key in autotune.report()
+            winner = autotune.decide(R1, R2, C, B, dtype=dt, device=dev)
+            ent = autotune.report()[key]
+            again = autotune.decide(R1, R2, C, B, dtype=dt, device=dev)
+            require(again == winner, "a validated decision changed")
+            emit({"phase": "autotune", "R1": R1, "R2": R2, "C": C, "B": B,
+                  "dtype": dt, "winner": winner, "margin": ent["margin"],
+                  "k1_ms": ent["k1_ms"], "library_ms": ent["library_ms"],
+                  "k1_device_ms": ent["k1_device_ms"],
+                  "library_device_ms": ent["library_device_ms"],
+                  "bound_ms": ent["bound_ms"], "bound_by": ent["bound_by"],
+                  "entry": "read back" if had else "measured now",
+                  "second_call": "validated in this process"})
+    rows = 64
+    ref = tree.engine(device=dev, dtype=torch.float64).set_potentials(values)
+    ref_post, ref_logz = ref.posterior_batch(
+        {k: v[:rows] for k, v in masks.items()})
+    for dtype in (torch.float32, torch.bfloat16):
+        eng = tree.engine(device=dev, dtype=dtype).set_potentials(values)
+        k1 = k1_counts_reset()
+        post, logz = eng.posterior_batch(masks)
+        n_k1 = k1.launches
+        require(n_k1 == len(main_shapes),
+                f"with the table filled: {n_k1} kernel launches, "
+                f"expected {len(main_shapes)}")
+        limits = (F64_LIMITS if dtype == torch.float32
+                  else dict(rtol=0, atol=0.02, logz_atol=0.05))
+        worst = check_close(post, logz, ref_post, ref_logz, len(post),
+                            f"{dtype} with the table filled vs float64", rows=rows, **limits)
+        emit({"phase": "autotune", "path": "posterior_batch (big clique)",
+              "dtype": str(dtype).split(".")[-1], "B": int(logz.shape[0]),
+              "kernel_launches": n_k1, "max_abs_err_vs_f64": worst,
+              "rows_checked": rows, "limits": limits})
+        del eng, post
+
+
+def hailfinder_serving(dev, B=128):
+    """hailfinder_like with B rows of evidence on every third variable (row
+    1 impossible), its float32 engine, and float64 posteriors of the first
+    16 rows."""
+    import torch
+
+    import junctiontree_tpu_torch as jt
+    from junctiontree_tpu_torch.models import hailfinder_like
+
+    factors, sizes, values = hailfinder_like(seed=0)
+    tree = jt.create_junction_tree(factors, sizes)
+    plan = tree.plan
+    labels = [plan.table.label_of(v) for v in range(plan.num_vars)][::3]
+    masks = jt.batch_masks_sparse(
+        plan, jt.random_evidence_batch(plan, B, labels, seed=2))
+    masks[labels[0]][1] = 0.0  # row 1: impossible evidence
+    eng = tree.engine(device=dev).set_potentials(values)
+    rows = 16
+    ref = tree.engine(device=dev, dtype=torch.float64).set_potentials(values)
+    ref_post, ref_logz = ref.posterior_batch(
+        {k: v[:rows] for k, v in masks.items()})
+    del ref
+    torch.cuda.empty_cache()
+    return dict(tree=tree, factors=factors, sizes=sizes, values=values,
+                labels=labels, masks=masks, eng=eng, B=B, rows=rows,
+                ref_post=ref_post, ref_logz=ref_logz)
+
+
+def phase_precision(dev, hail):
+    """A process that allows TF32 (``torch.set_float32_matmul_precision(
+    "high")``) still gets float64-grade posteriors from hailfinder_like's
+    planned einsums, and keeps its own setting."""
+    import torch
+
+    eng, masks = hail["eng"], hail["masks"]
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        post, logz = eng.posterior_batch(masks)
+        torch.cuda.synchronize()
+        after = torch.get_float32_matmul_precision()
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    require(after == "high" and tf32, f"the caller's precision became {after}")
+    worst = check_close(post, logz, hail["ref_post"], hail["ref_logz"], len(post),
+                        "hailfinder_like with TF32 allowed vs float64",
+                        rows=hail["rows"], **F64_LIMITS)
+    emit({"phase": "precision", "model": "hailfinder_like", "B": hail["B"],
+          "caller_precision": "high", "caller_precision_after": after,
+          "package_precision": "highest", "max_abs_err_vs_f64": worst,
+          "rows_checked": hail["rows"], "limits": F64_LIMITS})
+
+
+def phase_native_compile():
+    """The plans of the 1,000-leaf star and the 5,000-chain from the Python
+    compiler and from ``backend="auto"`` (the C++ compiler from 512
+    variables up): equal ``Plan.to_json()``, and each one's seconds."""
+    import junctiontree_tpu_torch as jt
+    from junctiontree_tpu_torch import native
+    from junctiontree_tpu_torch.models import chain_bn_model, star_bn_model
+
+    t0 = time.perf_counter()
+    require(native.available(), "the native compiler did not build")
+    build = time.perf_counter() - t0
+    line = {"phase": "native_compile", "g++_build_and_load_s": build}
+    for name, (f, s, _) in (("star1000", star_bn_model(1000, card=3)),
+                            ("chain5000", chain_bn_model(5000, seed=1))):
+        t0 = time.perf_counter()
+        py = jt.compile_plan(f, s, backend="python").to_json()
+        t_py = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        auto = jt.compile_plan(f, s).to_json()
+        t_auto = time.perf_counter() - t0
+        require(py == auto, f"{name}: the native plan differs from the Python plan")
+        line.update({f"{name}_python_s": t_py, f"{name}_auto_native_s": t_auto})
+    emit(line)
+
+
+def phase_cli(dev, big):
+    """``python -m junctiontree_tpu_torch`` in process on the card: the big
+    clique and one evidence row as UAI files, tasks MAR and PR, every
+    big-clique contraction launching the kernel, the printed numbers held
+    to an in-process float64 engine."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import junctiontree_tpu_torch as jt
+    from junctiontree_tpu_torch import __main__ as cli
+    from junctiontree_tpu_torch.ops import factored_contract as fc
+    from junctiontree_tpu_torch.utils.uai import load_uai, write_uai
+
+    names = big["names"]
+    ids = {n: i for i, n in enumerate(names)}
+    ev = {ids[n]: int(st) for n, st in
+          jt.random_evidence_batch(big["tree"].plan, 1, names[:12], seed=7)[0].items()}
+    line = {"phase": "cli", "model": "big_clique", "B": 1, "observed": len(ev)}
+    with tempfile.TemporaryDirectory() as tmp:
+        model = os.path.join(tmp, "big.uai")
+        with open(model, "w") as f:
+            f.write(write_uai([[ids[v] for v in fv] for fv in big["factors"]],
+                              {i: 2 for i in range(len(names))}, big["values"]))
+        evid = os.path.join(tmp, "big.evid")
+        with open(evid, "w") as f:
+            f.write(" ".join([str(len(ev))] + [f"{k} {v}" for k, v in ev.items()]))
+        factors, sizes, values = load_uai(model)
+        tree = jt.create_junction_tree(factors, sizes)
+        ref = tree.engine(device=dev, dtype=torch.float64).set_potentials(values)
+        post, logz = ref.posterior_batch(jt.batch_masks_sparse(tree.plan, [ev]))
+        want_mar = np.concatenate(
+            [post[tree.plan.table.id_of(v)][0].cpu().numpy() for v in range(len(names))])
+        want_pr = float(logz[0]) / np.log(10.0)
+        for task in ("MAR", "PR"):
+            k1 = k1_counts_reset()
+            calls0 = fc.big_clique_sep_message.calls
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main([model, "--evidence", evid, "--task", task,
+                               "--device", "cuda"])
+            secs = time.perf_counter() - t0
+            require(rc == 0, f"CLI {task} exited {rc}")
+            routed = fc.big_clique_sep_message.calls - calls0
+            require(routed > 0 and k1.launches == routed,
+                    f"CLI {task}: {routed} routed calls, {k1.launches} "
+                    "kernel launches")
+            out = buf.getvalue().split()
+            require(out[0] == task, f"CLI {task} printed {out[:2]}")
+            if task == "MAR":
+                toks = [float(t) for t in out[1:]]
+                got, i = [], 1
+                for _ in range(int(toks[0])):
+                    n = int(toks[i])
+                    got.extend(toks[i + 1:i + 1 + n])
+                    i += 1 + n
+                err = float(np.abs(np.array(got) - want_mar).max())
+                require(err <= 1e-5, f"CLI MAR differs from float64 by {err}")
+            else:
+                err = abs(float(out[1]) - want_pr)
+                require(err <= 1e-5, f"CLI PR differs from float64 by {err}")
+            line.update({f"{task}_seconds": secs, f"{task}_routed_calls": routed,
+                         f"{task}_kernel_launches": k1.launches,
+                         f"{task}_max_abs_err_vs_f64": err})
+    emit(line)
+
+
+def peak_rise(fn):
+    """(result of ``fn()``, peak bytes allocated during it above what was
+    allocated just before)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    out, peak = peak_bytes(fn)
+    return out, peak - base
+
+
+def phase_memory(dev, hail):
+    """The memory estimates against measured peaks under the default 8 GiB
+    budget: ``max_feasible_batch`` for hailfinder_like's ``posterior_batch``
+    and tree-MAP (the call's peak rise plus the standing potentials within
+    the budget at the returned B, above it at 2B), and the cutset engine's
+    chunks at B = 1024 (peak rise within 1.25 x its budget)."""
+    import numpy as np
+    import torch
+
+    import junctiontree_tpu_torch as jt
+
+    budget = 8 << 30
+    tree, values, labels = hail["tree"], hail["values"], hail["labels"]
+    plan = tree.plan
+    line = {"phase": "memory_estimates", "model": "hailfinder_like",
+            "budget_bytes": budget}
+    seps = sum(int(np.prod([plan.sizes[v] for v in sv]))
+               for sv in plan.tree.separators)
+    engines = {"posterior": hail["eng"],
+               "map": tree.engine("max_product", device=dev).set_potentials(values)}
+    for task, eng in engines.items():
+        held = 4 * plan.stats()["total_clique_states"]
+        B = eng.max_feasible_batch(budget, task=task)
+        rises = []
+        for b in (B, 2 * B):
+            masks = jt.batch_masks_sparse(
+                plan, jt.random_evidence_batch(plan, b, labels, seed=11))
+            if task == "map":
+                lm = log_masks(masks)
+                _, rise = peak_rise(lambda: eng.map_assignment_batch(lm))
+            else:
+                _, rise = peak_rise(lambda: eng.posterior_batch(masks))
+            rises.append(rise)
+        require(rises[0] + held <= budget,
+                f"{task}: {rises[0] + held} bytes at B = {B}, over the budget")
+        require(rises[1] + held > budget,
+                f"{task}: {rises[1] + held} bytes at 2B = {2 * B}, inside the "
+                "budget: the estimate is not the largest power of two")
+        reckoned = 4 * (eng.ROW_CLIQUES[task] * plan.stats()["max_clique_states"]
+                        + 2 * seps)
+        line.update({f"{task}_B": B, f"{task}_bytes_at_B": rises[0] + held,
+                     f"{task}_bytes_at_2B": rises[1] + held,
+                     f"{task}_measured_bytes_per_row": (rises[1] - rises[0]) / B,
+                     f"{task}_reckoned_bytes_per_row": reckoned})
+    del engines
+    torch.cuda.empty_cache()
+    # the cutset engine at B = 1024 under its default 8 GiB chunk budget
+    hf, hs, hv = hail["factors"], hail["sizes"], hail["values"]
+    hnames = list(hs)
+    Bc = 1024
+    rng = np.random.default_rng(0)
+    cmasks = {}
+    for v in hnames[::5]:
+        m = np.zeros((Bc, hs[v]), dtype=np.float32)
+        m[np.arange(Bc), rng.integers(0, hs[v], Bc)] = 1.0
+        cmasks[v] = m
+    ce = jt.CutsetEngine(hf, hs, hv, target_states=1 << 14, max_enum=512,
+                         device=dev)
+    st = ce.describe()
+    chunk = ce._chunk_for(Bc)
+    _, crise = peak_rise(lambda: ce.posterior_batch(cmasks))
+    require(crise <= 1.25 * ce._chunk_budget,
+            f"cutset: peak rise {crise} over 1.25 x the budget {ce._chunk_budget}")
+    line.update(cutset_B=Bc, cutset_states=st["cutset_states"],
+                cutset_chunk=chunk, cutset_chunk_budget_bytes=ce._chunk_budget,
+                cutset_reckoned_bytes_per_chunk=4 * Bc * st["total_clique_states"]
+                * 2 * chunk,
+                cutset_peak_rise_bytes=crise,
+                cutset_peak_rise_over_budget=crise / ce._chunk_budget)
+    del ce
+    torch.cuda.empty_cache()
+    emit(line)
+
+
+
 def main() -> int:
+    import shutil
+    import tempfile
+
+    from junctiontree_tpu_torch.config import DEFAULT
+
+    # the measured decisions live in a directory of this run's own
+    DEFAULT.autotune_cache_dir = tempfile.mkdtemp(prefix="jtt_autotune_")
+    try:
+        return run()
+    finally:
+        shutil.rmtree(DEFAULT.autotune_cache_dir, ignore_errors=True)
+
+
+def run() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -1605,13 +1926,11 @@ def main() -> int:
     import numpy as np
 
     import junctiontree_tpu_torch as jt
-    from junctiontree_tpu_torch.models import hailfinder_like, sprinkler_model
+    from junctiontree_tpu_torch.models import sprinkler_model
     from junctiontree_tpu_torch.ops import cuda_build
     from junctiontree_tpu_torch.ops import factored_contract as fc
     from junctiontree_tpu_torch.utils.bench_kernel import device_ms, host_us
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     profile = "--profile" in sys.argv[1:]
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -1777,6 +2096,17 @@ def main() -> int:
               "row_of_1e-38_rel_err": worst, "row_sum": want[0, 0].item(),
               "zero_rows_exact": True})
 
+    # -- 3b. the measurement, precision, the native compiler, the CLI, memory
+    big = dict(tree=tree, factors=factors, values=values, masks=masks,
+               names=names)
+    phase_autotune(dev, tree, values, masks, main_shapes)
+    hail = hailfinder_serving(dev)
+    phase_precision(dev, hail)
+    phase_native_compile()
+    phase_cli(dev, big)
+    phase_memory(dev, hail)
+    torch.cuda.empty_cache()
+
     # -- 4. big-clique serving (the main path) -------------------------------
     eng = tree.engine(device=dev).set_potentials(values)
     k1 = k1_counts_reset()
@@ -1813,27 +2143,18 @@ def main() -> int:
     launches_bf16 = phase_bf16(dev, tree, values, masks, post, logz,
                                t_big, peak_big, len(main_shapes), profile)
     del eng, post
-    big = dict(tree=tree, values=values, masks=masks, names=names)
 
     # -- 5. classic-network serving (hailfinder_like, einsum route) ----------
-    factors, sizes, values = hailfinder_like(seed=0)
-    tree = jt.create_junction_tree(factors, sizes)
-    plan = tree.plan
-    Bh = 128
-    labels = [plan.table.label_of(v) for v in range(plan.num_vars)][::3]
-    masks = jt.batch_masks_sparse(
-        plan, jt.random_evidence_batch(plan, Bh, labels, seed=2))
-    masks[labels[0]][1] = 0.0  # row 1: impossible evidence
-    eng = tree.engine(device=dev).set_potentials(values)
+    tree, factors, sizes, values = (hail[k] for k in
+                                    ("tree", "factors", "sizes", "values"))
+    plan, masks, eng, Bh, rows = (tree.plan, hail["masks"], hail["eng"],
+                                  hail["B"], hail["rows"])
     k1 = k1_counts_reset()
     (post, logz), peak = peak_bytes(lambda: eng.posterior_batch(masks))
     hail_launches = k1.launches
-    rows = 16
-    ref = tree.engine(device=dev, dtype=torch.float64).set_potentials(values)
-    ref_post, ref_logz = ref.posterior_batch(
-        {k: v[:rows] for k, v in masks.items()})
-    worst_h = check_close(post, logz, ref_post, ref_logz, len(post),
-                          "hailfinder_like vs float64", rows=rows, **F64_LIMITS)
+    worst_h = check_close(post, logz, hail["ref_post"], hail["ref_logz"],
+                          len(post), "hailfinder_like vs float64", rows=rows,
+                          **F64_LIMITS)
     require(bool(torch.isneginf(logz[1])), "impossible row: logZ is not -inf")
     require(all(bool((p[1] == 0).all()) for p in post),
             "impossible row: posteriors are not zero")
@@ -1844,7 +2165,6 @@ def main() -> int:
         emit({"phase": "profile", "model": "hailfinder_like", "step_ms": t_hail,
               "device_busy_ms_per_step": busy,
               "kernels_per_step": n_kernels, "top_kernels": top})
-    del ref, ref_post
     # sprinkler on the card: P(rain | wet_grass) = 0.7079
     f, s, v = sprinkler_model()
     st = jt.create_junction_tree(f, s)
@@ -1865,8 +2185,8 @@ def main() -> int:
     # -- 6. the rest of the serving path ------------------------------------
     phase_log(dev, tree, values, masks, post, logz)
     torch.cuda.empty_cache()
-    hail = dict(tree=tree, factors=factors, sizes=sizes, values=values,
-                masks=masks, eng=eng, post=post, B=Bh, peak=peak)
+    hail.update(post=post, peak=peak)
+    del hail["ref_post"], hail["ref_logz"]
     chain = phase_chain(dev, profile)
     grid = phase_fused(dev, profile)
     phase_chunked(dev, eng, plan, grid)

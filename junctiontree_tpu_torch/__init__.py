@@ -37,6 +37,17 @@ posterior samples, ``chow_liu(data)`` learns a tree structure,
 ``MarginalMapSolver`` / ``marginal_map`` / ``tree.marginal_map`` answer
 Marginal MAP, ``CutsetEngine`` serves dense models by cutset conditioning,
 and ``LoopyEngine`` runs loopy belief propagation on the raw factor graph.
+
+Around them: ``python -m junctiontree_tpu_torch MODEL.uai --device cuda|cpu``
+answers the UAI tasks (MAR, MPE, PR, MMAP); ``Config`` bundles the knobs
+(``Config(...).engine(factors, sizes, values)``); the reference's module
+surfaces live in ``construction``, ``computation`` and ``sum_product``;
+``compile_plan`` uses the C++ compiler under ``native/`` (built with ``g++``
+at first use) from 512 variables up; every big-clique contraction on the
+card launches the kernel, and ``ops.autotune`` measures it against the
+library per shape as a diagnostic; every float32 product runs at the
+package's precision (``ops.semirings.set_matmul_precision``, default
+"highest": TF32 off).
 """
 
 from . import approx, cutset, learn, learn_chain, mmap, sampling, structure
@@ -54,7 +65,13 @@ from .convert import (
     thetas_from_numpy,
 )
 from .cutset import CutsetEngine, choose_cutset
-from .evidence import batch_masks, batch_masks_sparse, random_evidence_batch
+from .evidence import (
+    apply_evidence,
+    batch_masks,
+    batch_masks_sparse,
+    random_evidence_batch,
+    shrink_sizes,
+)
 from .executor import Engine, batched_propagate_program, evidence_to_masks
 from .incremental import IncrementalSession
 from .joint import mutual_information_from_joint, steiner_subtree
@@ -113,6 +130,8 @@ __all__ = [
     "merge_trees",
     "change_root",
     "insert_sepset",
+    "apply_evidence",
+    "shrink_sizes",
     "batch_masks",
     "batch_masks_sparse",
     "random_evidence_batch",

@@ -4,7 +4,9 @@
 -> JunctionTree chain, with ``JunctionTree.propagate(values)`` returning a
 list of unnormalized factor marginals with the same length and shapes as
 the inputs, and ``JunctionTree.engine(device=..., dtype=...)`` exposing the
-serving path on a torch device.
+serving path on a torch device.  ``einsum`` and ``CliqueGraph.evaluate`` /
+``.marginalize`` are the reference's helpers; they compute on a torch device
+(default CUDA device 0) and return numpy.
 """
 
 from __future__ import annotations
@@ -15,8 +17,43 @@ import numpy as np
 import torch
 
 from .executor import Engine, resolve_device
-from .ops.semirings import SEMIRINGS, Semiring
+from .ops.semirings import SEMIRINGS, SUM_PRODUCT, Semiring
 from .schedule import Plan, compile_plan
+
+
+def einsum(xs, xs_keys, y_keys, device=None):
+    """Key-flexible einsum: arbitrary hashable axis keys, and output-only
+    keys allowed.  Output-only keys become length-1 axes of the result
+    (broadcast them yourself if full extents are needed; see
+    ``CliqueGraph.evaluate`` for the full-extent behavior).  Computed on
+    ``device`` (default CUDA device 0) in the inputs' dtype; returns
+    numpy."""
+    device = resolve_device(device)
+    table: dict = {}
+    for ks in list(xs_keys) + [list(y_keys)]:
+        for k in ks:
+            table.setdefault(k, len(table))
+    covered = {k for ks in xs_keys for k in ks}
+    inner_out = [k for k in y_keys if k in covered]
+    res = SUM_PRODUCT.contract(
+        [torch.as_tensor(np.asarray(x), device=device) for x in xs],
+        [[table[k] for k in ks] for ks in xs_keys],
+        [table[k] for k in inner_out],
+    )
+    # length-1 axes for output-only keys, in y_keys order
+    out_shape = []
+    take = 0
+    for k in y_keys:
+        if k in covered:
+            out_shape.append(res.shape[take])
+            take += 1
+        else:
+            out_shape.append(1)
+    pos = {k: i for i, k in enumerate(inner_out)}
+    perm = [pos[k] for k in y_keys if k in covered]
+    if inner_out:
+        res = res.permute(perm)
+    return res.reshape(out_shape).cpu().numpy()
 
 
 def create_junction_tree(factors, sizes) -> "JunctionTree":
@@ -58,6 +95,56 @@ class CliqueGraph:
 
     def create_junction_tree(self) -> "JunctionTree":
         return JunctionTree(self, self._plan)
+
+    def evaluate(
+        self, values: Sequence[np.ndarray], size1_uncovered: bool = False,
+        device=None,
+    ) -> List[np.ndarray]:
+        """Initial clique potentials (product of assigned factors, broadcast
+        to the full clique shape: the Hugin initialization), computed in
+        float32 on ``device`` (default CUDA device 0).
+
+        ``size1_uncovered=True`` gives the reference's shapes: each clique
+        variable not covered by any factor assigned to that clique keeps a
+        length-1 axis.  Both forms hold the same values (the product is
+        constant along uncovered axes), so that table is the full one sliced
+        to index 0 there."""
+        from .executor import evaluate_cliques
+
+        device = resolve_device(device)
+        vals = [
+            torch.as_tensor(np.asarray(v), dtype=torch.float32, device=device)
+            for v in values
+        ]
+        full = [p.cpu().numpy() for p in evaluate_cliques(self._plan, vals)]
+        if not size1_uncovered:
+            return full
+        out = []
+        for c, p in enumerate(full):
+            covered = set()
+            for f_ix, mc in enumerate(self.factor_to_maxclique):
+                if mc == c:
+                    covered.update(self.factor_graph.factors[f_ix])
+            idx = tuple(
+                slice(None) if v in covered else slice(0, 1)
+                for v in self.maxcliques[c]
+            )
+            out.append(p[idx])
+        return out
+
+    def marginalize(self, clique_beliefs, device=None) -> List[np.ndarray]:
+        """Project consistent clique beliefs back onto each factor's
+        variables: one array per factor, of that factor's value shape,
+        computed on ``device`` (default CUDA device 0) in the beliefs'
+        dtype."""
+        from .executor import factor_marginals
+
+        device = resolve_device(device)
+        out = factor_marginals(
+            self._plan,
+            [torch.as_tensor(np.asarray(b), device=device) for b in clique_beliefs],
+        )
+        return [x.cpu().numpy() for x in out]
 
 
 class JunctionTree:

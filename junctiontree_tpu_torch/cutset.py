@@ -181,7 +181,7 @@ class CutsetEngine:
         self.device = resolve_device(device)
         self.dtype = dtype
         # None = auto-size per query batch: a chunk materializes
-        # [chunk, B, max_clique_states] beliefs, so chunk is capped by the
+        # [chunk, B, clique_states] beliefs, so chunk is capped by the
         # memory budget (fixed chunks run out at large B on wide reduced
         # models)
         self._state_chunk = None if state_chunk is None else int(state_chunk)
@@ -264,16 +264,17 @@ class CutsetEngine:
         return st
 
     def _chunk_for(self, B: int, inner: str = "belief") -> int:
-        """Cutset-axis chunk size of the host loop.  Auto mode caps the
-        per-chunk working buffers at the memory budget: the belief-form
-        inner materializes [chunk, B, max_clique_states] beliefs, the
-        message-form inner only [chunk, B, max_sep_states]-scale messages
-        plus clique-scale contraction intermediates per chunk element."""
+        """Cutset-axis chunk size of the host loop.  Auto mode caps what one
+        chunk keeps at the memory budget.  Eager torch under ``torch.vmap``
+        keeps every clique belief of the chunk, [chunk, B, clique_states]
+        for each clique, beside the products it was made from: two such
+        sets for the belief-form inner (measured on the card: 1.8, PERF.md),
+        three for the message form (its messages and contraction
+        intermediates)."""
         if self._state_chunk is not None:
             return max(1, min(self.num_states, self._state_chunk))
         st = self.plan.stats()
-        states = max(1, st["max_clique_states"])
-        # clique-sized buffers reckoned live per step
+        states = max(1, st["total_clique_states"])
         live = 3 if inner == "message" else 2
         fit = self._chunk_budget // (4 * max(B, 1) * states * live)
         return max(1, min(self.num_states, int(fit), 256))

@@ -1,9 +1,18 @@
-"""Batched evidence masks (counterpart of ``junctiontree_tpu/evidence.py``).
+"""Evidence conditioning (counterpart of ``junctiontree_tpu/evidence.py``).
 
-Evidence is a per-variable mask in semiring space: entries inconsistent with
-the observation are the semiring zero.  These helpers build the ``[B,
-size_v]`` numpy mask batches that ``Engine.posterior_batch`` serves; they use
-numpy only, so the same arrays feed both packages in the parity tests.
+Two mechanisms:
+
+1. ``apply_evidence`` / ``shrink_sizes``: shape-changing, reference-style
+   evidence.  Each factor's observed axes are sliced to the observed state,
+   and the sizes dict gives observed variables size 1.
+
+2. Masks: evidence as a per-variable mask in semiring space, whose entries
+   inconsistent with the observation are the semiring zero.  ``batch_masks``
+   and ``batch_masks_sparse`` build the ``[B, size_v]`` numpy mask batches
+   that ``Engine.posterior_batch`` serves.
+
+Everything here is numpy, so the same arrays feed both packages in the
+parity tests.
 """
 
 from __future__ import annotations
@@ -14,6 +23,36 @@ import numpy as np
 
 from .ops.semirings import SUM_PRODUCT, Semiring
 from .schedule import Plan
+
+
+def apply_evidence(
+    values: Sequence[np.ndarray],
+    factor_vars: Sequence[Sequence[Hashable]],
+    evidence: Dict[Hashable, int],
+) -> List[np.ndarray]:
+    """Slice each factor's observed axes down to the observed state.
+
+    Shape-changing (reference-style) evidence: returns new value arrays where
+    every axis belonging to an observed variable has length 1."""
+    out: List[np.ndarray] = []
+    for val, fvars in zip(values, factor_vars):
+        v = np.asarray(val)
+        if v.ndim == 0:
+            out.append(v)
+            continue
+        index = tuple(
+            slice(evidence[x], evidence[x] + 1) if x in evidence else slice(None)
+            for x in fvars
+        )
+        out.append(v[index])
+    return out
+
+
+def shrink_sizes(
+    sizes: Dict[Hashable, int], evidence: Dict[Hashable, int]
+) -> Dict[Hashable, int]:
+    """Sizes dict for the sliced factor graph (observed vars -> size 1)."""
+    return {k: (1 if k in evidence else s) for k, s in sizes.items()}
 
 
 def batch_masks(

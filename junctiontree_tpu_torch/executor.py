@@ -1012,7 +1012,12 @@ class Engine:
         ]
 
     # -- serving: precompute potentials once, then mask-only queries --
-    def set_potentials(self, values: Sequence[np.ndarray]) -> "Engine":
+    def set_potentials(
+        self, values: Sequence[np.ndarray], dtype=np.float64
+    ) -> "Engine":
+        """Evaluate the clique potentials from the factor values (linear
+        space) on the host in ``dtype`` (default float64) and install them
+        on the device in the engine's dtype."""
         from .utils.timing import TIMERS
 
         vals = [np.asarray(v, dtype=np.float64) for v in values]
@@ -1020,7 +1025,7 @@ class Engine:
             with np.errstate(divide="ignore"):
                 vals = [np.log(v) for v in vals]
         with TIMERS.phase("engine.evaluate"):
-            pots = evaluate_cliques_np(self.plan, vals, self.semiring)
+            pots = evaluate_cliques_np(self.plan, vals, self.semiring, dtype=dtype)
         return self.set_clique_potentials(pots)
 
     def set_clique_potentials(self, pots: Sequence[np.ndarray]) -> "Engine":
@@ -1188,6 +1193,11 @@ class Engine:
                 factored_masked_contract.launches_backward,
             "big_clique_route_calls": big_clique_sep_message.calls,
         }
+        from .ops.autotune import report
+
+        rt = report()
+        if rt:
+            st["kernel_routing"] = rt
         return st
 
     def __repr__(self) -> str:
@@ -1279,6 +1289,23 @@ class Engine:
         pots = self._require_pots()
         ids, masks = self._masks_to_program_args(mask_batch)
         return self._general_program(ids, False)(pots, masks)
+
+    def query_batch_vmap(self, mask_batch: Sequence):
+        """``torch.vmap`` of the parity path over the batch (every operand
+        batched; one [B, size_v] mask per variable id, in the semiring's
+        space): (unnormalized var marginals [B, size_v], Z [B]) in the
+        semiring's space.  Kept beside ``query_batch`` for differential
+        testing."""
+        pots = self._require_pots()
+        plan, sr = self.plan, self.semiring
+        masks = [self._place(m) for m in mask_batch]
+
+        def one(ms):
+            beliefs, _ = propagate_cliques(
+                plan, apply_masks(plan, pots, list(ms), sr), sr)
+            return var_marginals(plan, beliefs, sr), partition(plan, beliefs, sr)
+
+        return torch.vmap(one)(masks)
 
     def _fused_schedule(self):
         if self._fused_sched is None:
@@ -1846,27 +1873,48 @@ class Engine:
                 total += float(np.log(val))
         return total
 
-    def max_feasible_batch(
-        self, budget_bytes: int = 8 << 30, live_messages: int = 4,
-        analysis: Optional[dict] = None,
-    ) -> int:
-        """Largest power-of-two evidence batch that keeps batched message
-        traffic inside ``budget_bytes`` of device memory.
+    # bytes one evidence row keeps alive at the peak of a call in eager
+    # torch, in units of (storage itemsize x the largest clique's states),
+    # beside two [B, separator] messages per separator: fitted to peaks
+    # measured on the card (chip_smoke.py phase memory_estimates; PERF.md)
+    ROW_CLIQUES = {"posterior": 2.6, "map": 1.7}
 
-        Every batched message materializes [B, sep_states] values in the
-        storage dtype; on models with huge separators the batch size -- not
-        the clique size -- is what overflows memory.  ``live_messages``
-        bounds how many such tensors are alive at once.
+    def max_feasible_batch(
+        self, budget_bytes: int = 8 << 30,
+        live_messages: Optional[int] = None,
+        analysis: Optional[dict] = None, task: str = "posterior",
+    ) -> int:
+        """Largest power-of-two evidence batch whose call keeps the device
+        memory it allocates, the standing potentials included, inside
+        ``budget_bytes``.
+
+        On models with huge cliques and separators the batch size, not the
+        model, is what overflows memory.  By default the bytes of one row
+        are reckoned for eager torch: ``ROW_CLIQUES[task]`` times the
+        largest clique's states (the products of the planned pairwise
+        einsums on it) plus two messages per separator, in the storage
+        dtype; ``task`` is "posterior" (``posterior_batch``) or "map"
+        (``map_assignment_batch``).  ``live_messages`` is accepted for the
+        JAX package's signature and must be None: its reckoning (n tensors
+        of [B, max_sep_states] alive, nothing standing) under-counts what
+        eager torch keeps several times over.
 
         ``analysis``: optionally ``{"batch": B0, "temp_bytes": peak}`` from
         a measured step at batch B0 (``torch.cuda.max_memory_allocated``
-        around one ``posterior_batch``) -- then the estimate starts from the
-        MEASURED peak and only extrapolates the marginal queries
-        analytically: B0 + (budget - peak) / per_query_bytes.
-        Returns at least 1."""
+        around one call) -- then the estimate starts from the MEASURED peak
+        and only extrapolates the marginal rows:
+        B0 + (budget - peak) / per_query_bytes.  Returns at least 1."""
         st = self.plan.stats()
         itemsize = torch.empty((), dtype=self.storage_dtype()).element_size()
-        per_query = itemsize * max(st["max_sep_states"], 1) * live_messages
+        if live_messages is not None:
+            raise ValueError(
+                "live_messages reckons XLA's buffer reuse and under-counts "
+                "eager torch's peak; pass analysis= from a measured step")
+        seps = sum(_vars_states(self.plan.sizes, vs)
+                   for vs in self.plan.tree.separators)
+        per_query = itemsize * int(
+            self.ROW_CLIQUES[task] * st["max_clique_states"] + 2 * seps)
+        held = itemsize * st["total_clique_states"]
         if analysis is not None:
             headroom = budget_bytes - int(analysis["temp_bytes"])
             if headroom < 0:
@@ -1874,7 +1922,7 @@ class Engine:
             else:
                 b = int(analysis["batch"]) + int(headroom // per_query)
         else:
-            b = max(1, int(budget_bytes // per_query))
+            b = max(1, int((budget_bytes - held) // per_query))
         b = max(1, b)
         return 1 << (b.bit_length() - 1)
 

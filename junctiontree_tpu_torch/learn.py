@@ -40,7 +40,7 @@ from .executor import (
     propagate_cliques,
     resolve_device,
 )
-from .ops.semirings import SUM_PRODUCT
+from .ops.semirings import SUM_PRODUCT, pinned_precision
 from .schedule import Plan
 
 # the steps of the message program that logZ needs
@@ -132,7 +132,8 @@ def _adam_ascent(params, neg_loglik, steps, rate, verbose, what) -> List[float]:
     history: List[float] = []
     for i in range(steps):
         loss = neg_loglik()
-        grads = torch.autograd.grad(loss, params)
+        with pinned_precision():
+            grads = torch.autograd.grad(loss, params)
         for p, g in zip(params, grads):
             p.grad = g
         opt.step()
@@ -281,7 +282,8 @@ def _e_step(obs_logz, values, masks, device, dtype):
         for v in values
     ]
     logz = obs_logz(thetas, masks)
-    return logz.detach(), torch.autograd.grad(logz.sum(), thetas)
+    with pinned_precision():
+        return logz.detach(), torch.autograd.grad(logz.sum(), thetas)
 
 
 def expected_counts(

@@ -19,6 +19,10 @@ for bfloat16, with the ``w1`` sum fused behind it.
 :func:`reference_factored_contract` is the plain PyTorch version.  The
 wrapper :func:`factored_masked_contract` uses it only for tensors that lie
 on the CPU; for a CUDA tensor it launches the kernel or raises.
+:func:`library_factored_contract` computes the same function as two library
+products.  It is the yardstick ``ops/autotune.py`` times the kernel against;
+no serving path calls it: :func:`big_clique_sep_message` launches the kernel
+for every float32 and bfloat16 tensor on the card.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from .semirings import SUM_PRODUCT
+from .semirings import SUM_PRODUCT, pinned_precision
 
 # kernel tile constants; they must match csrc/factored_contract.cu
 BM = 128      # batch rows per block
@@ -55,8 +59,48 @@ def reference_factored_contract(
     )
     R1, R2, C = pot.shape
     B = w1.shape[0]
-    t = w2.to(dt) @ pot.to(dt).permute(1, 0, 2).reshape(R2, R1 * C)
+    with pinned_precision():
+        t = w2.to(dt) @ pot.to(dt).permute(1, 0, 2).reshape(R2, R1 * C)
     return (t.reshape(B, R1, C) * w1.to(dt)[:, :, None]).sum(dim=1)
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """``a @ b`` accumulated and returned in ``dt``.  Two bfloat16 operands
+    on the card are multiplied as they are, on cuBLAS's tensor cores with a
+    float32 result (``out_dtype``); other operands are widened first."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16 and dt == torch.float32:
+        return torch.mm(a, b, out_dtype=dt)
+    return a.to(dt) @ b.to(dt)
+
+
+def library_factored_contract(
+    pot: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor
+) -> torch.Tensor:
+    """The same contraction as two library products: what
+    ``ops/autotune.measure`` times the kernel against (the JAX package's
+    routed XLA einsum).  The pair is chosen so that the
+    intermediate is the smallest of [B, R2, C] (``w1`` first), [B, R1, C]
+    (``w2`` first) and [B, R1, R2] (the weights' outer product first).  It
+    accumulates in float32 and returns float32 for bfloat16 inputs; float64
+    inputs stay float64."""
+    R1, R2, C = (int(d) for d in pot.shape)
+    B = int(w1.shape[0])
+    dt = torch.promote_types(
+        torch.promote_types(pot.dtype, w1.dtype),
+        torch.promote_types(w2.dtype, torch.float32),
+    )
+    sizes = (B * R2 * C, B * R1 * C, B * R1 * R2)
+    pick = sizes.index(min(sizes))
+    with pinned_precision():
+        if pick == 0:    # sum over r1 first: [B, R2, C], then over r2
+            t = _mm(w1, pot.reshape(R1, R2 * C), dt).reshape(B, R2, C)
+            return torch.bmm(w2.to(dt)[:, None, :], t)[:, 0]
+        if pick == 1:    # sum over r2 first: [B, R1, C], then over r1
+            t = _mm(w2, pot.permute(1, 0, 2).reshape(R2, R1 * C), dt)
+            return torch.bmm(w1.to(dt)[:, None, :], t.reshape(B, R1, C))[:, 0]
+        # the weights' outer product [B, R1 * R2], then one product with pot
+        o = (w1.to(dt)[:, :, None] * w2.to(dt)[:, None, :]).reshape(B, R1 * R2)
+        return o @ pot.to(dt).reshape(R1 * R2, C)
 
 
 def tiles_by_n(C: int) -> bool:
@@ -219,9 +263,9 @@ def _contract_grads(contract, pot, w1, w2, g, needs=(True, True, True)):
         for lo in range(0, R1, step):
             wg = (w1[:, lo:lo + step, None].to(dt) * g[:, None, :].to(dt))
             n = wg.shape[1]
-            parts.append(
-                torch.matmul(wg.reshape(B, n * C).t(), w2t).reshape(n, C, R2)
-            )
+            with pinned_precision():
+                prod = torch.matmul(wg.reshape(B, n * C).t(), w2t)
+            parts.append(prod.reshape(n, C, R2))
         dpot = (parts[0] if len(parts) == 1 else torch.cat(parts))
         dpot = dpot.permute(0, 2, 1).to(pot.dtype)
     return dpot, dw1, dw2
@@ -429,9 +473,9 @@ def big_clique_sep_message(
     can't be factored — callers use the einsum path instead).
     Masks/messages scoped inside sep_vars are applied post-contraction.
 
-    f32 and bf16 tensors on the card run the CUDA kernel; every other dtype,
-    and all CPU tensors, run the plain version.  Each call adds one to
-    ``big_clique_sep_message.calls``.  Returns [B, *sep_shape]."""
+    f32 and bf16 tensors on the card run the CUDA kernel; every other
+    dtype, and all CPU tensors, run the plain version.  Each call adds one
+    to ``big_clique_sep_message.calls``.  Returns [B, *sep_shape]."""
     cset = list(clique_vars)
     sset = list(sep_vars)
     rest = [v for v in cset if v not in sset]

@@ -19,16 +19,84 @@ the order itself: :func:`plan_contraction` is a small deterministic greedy
 planner that, at each step, contracts the pair of operands whose result is
 smallest.  Each pair is then one two-operand ``torch.einsum``, whose order
 no installation can change.
+
+Matmul precision.  The JAX package passes ``precision="highest"`` to every
+sum-product einsum.  PyTorch has no per-call precision: a process-wide
+setting (``torch.set_float32_matmul_precision``) decides whether float32
+products may use TF32.  So every product the package takes runs inside
+:class:`pinned_precision`, which sets the package's own setting
+(:func:`set_matmul_precision`, default ``"highest"``: TF32 off) and restores
+the caller's on exit, whatever the process set.
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Dict, List, Sequence, Tuple
 
 import torch
 
 _LETTERS = "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ"
+
+# the package's float32 matmul precision: "highest" keeps float32 products
+# exact-inference grade (TF32 off); "high" and "default" allow TF32
+_MATMUL_PRECISION = "highest"
+_TORCH_PRECISION = {"highest": "highest", "high": "high", "default": "high"}
+
+
+def set_matmul_precision(p: str) -> None:
+    """Set the precision of the package's float32 products: "highest"
+    (TF32 off, the default), "high" or "default" (TF32 allowed)."""
+    global _MATMUL_PRECISION
+    if p not in _TORCH_PRECISION:
+        raise ValueError(
+            f"matmul precision {p!r}: one of {sorted(_TORCH_PRECISION)}"
+        )
+    _MATMUL_PRECISION = p
+
+
+def get_matmul_precision() -> str:
+    return _MATMUL_PRECISION
+
+
+# pinned_precision's state, shared by every thread: how many contexts are
+# open, and the setting found when the first one opened
+_PIN_LOCK = threading.Lock()
+_PIN_DEPTH = 0
+_PIN_SAVED = "highest"
+
+
+class pinned_precision:
+    """Context in which torch's float32 matmul precision is the package's
+    (:func:`get_matmul_precision`).  The setting is process-wide, so open
+    contexts are counted across threads: the first to open saves the
+    caller's setting and the last to close restores it, and no thread's
+    exit lets another thread's product run at the caller's setting.  Costs
+    about a microsecond of host time."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        global _PIN_DEPTH, _PIN_SAVED
+        want = _TORCH_PRECISION[_MATMUL_PRECISION]
+        with _PIN_LOCK:
+            if _PIN_DEPTH == 0:
+                _PIN_SAVED = torch.get_float32_matmul_precision()
+            _PIN_DEPTH += 1
+            if torch.get_float32_matmul_precision() != want:
+                torch.set_float32_matmul_precision(want)
+        return self
+
+    def __exit__(self, *exc):
+        global _PIN_DEPTH
+        with _PIN_LOCK:
+            _PIN_DEPTH -= 1
+            if (_PIN_DEPTH == 0
+                    and torch.get_float32_matmul_precision() != _PIN_SAVED):
+                torch.set_float32_matmul_precision(_PIN_SAVED)
+        return False
+
 
 # log_sum_exp contractions whose union scope has at least this many states
 # go through the max-shifted linear einsum (log-matmul-exp) instead of
@@ -138,15 +206,17 @@ def _einsum_sum_product(
         ops = [x.float() for x in ops]
     ovs = [list(vs) for vs in operand_vars]
     extent = _extents(ops, ovs)
-    for i, j, res in plan_contraction(ovs, out_vars, extent):
-        y = torch.einsum(make_subscripts([ovs[i], ovs[j]], res), ops[i], ops[j])
-        del ops[j], ops[i], ovs[j], ovs[i]
-        ops.append(y)
-        ovs.append(res)
-    (x,), (vs,) = ops, ovs
-    if list(vs) == list(out_vars):
-        return x
-    return torch.einsum(make_subscripts([vs], out_vars), x)
+    with pinned_precision():
+        for i, j, res in plan_contraction(ovs, out_vars, extent):
+            y = torch.einsum(
+                make_subscripts([ovs[i], ovs[j]], res), ops[i], ops[j])
+            del ops[j], ops[i], ovs[j], ovs[i]
+            ops.append(y)
+            ovs.append(res)
+        (x,), (vs,) = ops, ovs
+        if list(vs) == list(out_vars):
+            return x
+        return torch.einsum(make_subscripts([vs], out_vars), x)
 
 
 def _extents(operands, operand_vars) -> Dict[int, int]:

@@ -26,6 +26,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .ops.semirings import pinned_precision
 from .schedule import Plan
 
 _TINY = 1e-38
@@ -194,7 +195,8 @@ def chain_logz_program(plan: Plan, layout: ChainLayout):
     differentiates: logZ needs no backward messages and no posteriors."""
 
     def fn(A: torch.Tensor, masks):
-        return _chain_forward(layout, A, masks)[2]
+        with pinned_precision():
+            return _chain_forward(layout, A, masks)[2]
 
     return fn
 
@@ -212,6 +214,10 @@ def chain_posterior_program(plan: Plan, layout: ChainLayout):
     m = len(layout.clique_order)
 
     def fn(A: torch.Tensor, masks):
+        with pinned_precision():
+            return _posteriors(A, masks)
+
+    def _posteriors(A, masks):
         M, F_all, logz, functional = _chain_forward(layout, A, masks)
         Ats, Ms = A.transpose(1, 2).unbind(0), M.unbind(0)
         G_all = None if functional else torch.empty_like(F_all)

@@ -196,10 +196,11 @@ def compile_plan(
     Mirrors the reference stack ``create_junction_tree`` -> ``triangulate`` ->
     ``create_junction_tree`` (SURVEY.md §3.1) in one host-side call.
 
-    backend: "auto" and "python" run the Python compiler at every model
-    size.  "native" (the JAX package's C++ compiler under
-    ``junctiontree_tpu/native``) is not ported yet and raises
-    ``NotImplementedError`` (see ROADMAP.md, Queue 1).
+    backend: "auto" uses the native C++ compiler (``native/``, built with
+    ``g++`` at first use) for min-fill on models of 512 variables or more
+    when it is available, and the Python compiler otherwise; "native" /
+    "python" force a path ("native" raises without ``g++``).  Both
+    compilers give the same plan.
 
     heuristic: elimination-order heuristic — 'auto' (default: min_fill,
     auto-escalating to a randomized portfolio when greedy min-fill lands a
@@ -209,20 +210,15 @@ def compile_plan(
     'min_weight', 'portfolio[N]' (run all three plus N randomized restarts,
     keep the smallest total clique state space), or 'anneal[S]' (portfolio
     seed + simulated annealing over elimination orders for S seconds,
-    default 2 — best quality, one-time compile cost).
+    default 2 — best quality, one-time compile cost; both ignore the native
+    backend).
 
     Every phase is timed into ``utils.timing.TIMERS`` (keys
     ``compile.intern`` / ``compile.triangulate`` / ``compile.treebuild``)
     and the resulting plan is logged via ``log_compile_stats``."""
     from .utils.timing import TIMERS, log_compile_stats
 
-    if backend == "native":
-        raise NotImplementedError(
-            "the native C++ plan compiler is not ported to "
-            "junctiontree_tpu_torch yet (ROADMAP.md, Queue 1); use "
-            "backend='auto' or 'python'"
-        )
-    if backend not in ("auto", "python"):
+    if backend not in ("auto", "python", "native"):
         raise ValueError(f"unknown backend {backend!r}")
     with TIMERS.phase("compile.intern"):
         table, int_factors, int_sizes = intern_factors(factors, sizes)
@@ -235,6 +231,7 @@ def compile_plan(
     if escalate:
         heuristic = "min_fill"
     tri = None
+    nat = None
     with TIMERS.phase("compile.triangulate"):
         if heuristic.startswith("anneal"):
             from .triangulate import anneal_triangulation
@@ -254,6 +251,26 @@ def compile_plan(
             tri = portfolio_triangulation(
                 int_factors, int_sizes, random_restarts=restarts
             )
+        use_native = tri is None and heuristic == "min_fill" and (
+            backend == "native"
+            or (backend == "auto" and len(int_sizes) >= 512)
+        )
+        if use_native:
+            from . import native
+
+            nat = native.native_compile(int_factors, int_sizes)
+            if nat is None and backend == "native":
+                raise RuntimeError(
+                    "native compiler requested but unavailable (no g++?)"
+                )
+            if nat is not None:
+                tri = Triangulation(
+                    maxcliques=nat["maxcliques"],
+                    factor_to_maxclique=nat["factor_to_maxclique"],
+                    elimination_order=nat["elimination_order"],
+                    fill_edges=nat["fill_edges"],
+                    treewidth=nat["treewidth"],
+                )
         if tri is None:
             tri = min_fill_triangulation(
                 int_factors, int_sizes, heuristic=heuristic
@@ -282,6 +299,7 @@ def compile_plan(
                 )
                 if better(tri2, tri):
                     tri = tri2
+                    nat = None
             if worst(tri) > _CFG.escalate_min_states:
                 # still above threshold: annealing recovers most of the
                 # remaining gap for a bounded one-time compile cost.  Fixed
@@ -294,8 +312,16 @@ def compile_plan(
                 )
                 if better(tri3, tri):
                     tri = tri3
+                    nat = None
     with TIMERS.phase("compile.treebuild"):
-        tree = build_junction_tree(tri.maxcliques, int_sizes, root=root)
+        if nat is not None:
+            from .treebuild import build_junction_tree_from_edges
+
+            tree = build_junction_tree_from_edges(
+                len(nat["maxcliques"]), nat["separators"], nat["edges"], root
+            )
+        else:
+            tree = build_junction_tree(tri.maxcliques, int_sizes, root=root)
 
     # evidence landing site: smallest clique containing each var
     var_to_clique = [-1] * len(int_sizes)

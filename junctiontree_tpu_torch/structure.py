@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .executor import resolve_device
+from .ops.semirings import pinned_precision
 
 
 def pairwise_counts(
@@ -42,7 +43,8 @@ def pairwise_counts(
     oh = torch.nn.functional.one_hot(
         torch.as_tensor(data, dtype=torch.int64, device=device), K
     ).to(torch.float32).reshape(N, V * K)                      # [N, (v, i)]
-    counts = (oh.t() @ oh).reshape(V, K, V, K).permute(0, 2, 1, 3)
+    with pinned_precision():
+        counts = (oh.t() @ oh).reshape(V, K, V, K).permute(0, 2, 1, 3)
     return counts.cpu().numpy()
 
 def mutual_information(

@@ -47,6 +47,30 @@ class PhaseTimers:
 TIMERS = PhaseTimers()
 
 
+@contextlib.contextmanager
+def device_trace(path: str) -> Iterator[None]:
+    """``torch.profiler`` trace of the CPU and, where there is one, the
+    CUDA device around a block, written to ``path`` as a Chrome trace (open
+    it in Perfetto or ``chrome://tracing``)."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        try:
+            yield
+        finally:
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+    parent = os.path.dirname(os.path.abspath(path))
+    os.makedirs(parent, exist_ok=True)
+    prof.export_chrome_trace(path)
+
+
 def log_compile_stats(plan) -> None:
     """Structured one-line compile log: treewidth, clique states, depth."""
     st = plan.stats()

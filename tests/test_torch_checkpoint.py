@@ -123,7 +123,13 @@ def test_load_defaults_to_the_card(monkeypatch):
         jt.Engine.load("no_such_file.npz")
 
 
-def test_describe():
+def test_describe(tmp_path, monkeypatch):
+    from junctiontree_tpu_torch.config import DEFAULT
+    from junctiontree_tpu_torch.ops import autotune
+
+    # an empty decision table: no routed contraction was measured
+    monkeypatch.setattr(DEFAULT, "autotune_cache_dir", str(tmp_path))
+    monkeypatch.setattr(autotune, "_CACHE", None)
     TIMERS.reset()
     factors, sizes = grid_mrf(3, 3)
     values = random_values(factors, sizes, seed=0)
@@ -185,28 +191,35 @@ def test_unset_engine_raises_standard_error_on_all_paths(tmp_path):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_max_feasible_batch_matches_jax_arithmetic(dtype):
+    """The port reckons the rows eager torch keeps (``ROW_CLIQUES``, fitted
+    on the card) and the standing potentials; from a measured step
+    (``analysis=``) it extrapolates as the JAX package does, and halves the
+    probe batch of a step already over budget exactly as JAX does.  The JAX
+    package's ``live_messages`` reckoning is refused."""
     factors, sizes = grid_mrf(3, 3)
     values = random_values(factors, sizes, seed=0)
     eng = engine(factors, sizes, values, dtype=dtype)
     jeng = jt_jax.Engine(jt_jax.compile_plan(factors, sizes)).set_potentials(values)
-    B = 4
-    analysis = {"batch": B, "temp_bytes": 123_456}
-    # analysis-based estimate: plenty of headroom -> larger than B, po2
-    est = eng.max_feasible_batch(budget_bytes=1 << 30, analysis=analysis)
-    assert est >= B and est & (est - 1) == 0
-    # a step already over budget halves the probe batch
-    over = dict(analysis, temp_bytes=2 << 30, batch=8)
-    assert eng.max_feasible_batch(budget_bytes=1 << 30, analysis=over) == 4
-    # analytic form: po2, >= 1
-    assert eng.max_feasible_batch(budget_bytes=1024) >= 1
-    if dtype is torch.float32:
-        # the JAX engine stores float32 by default: same numbers throughout
-        for kw in (dict(), dict(budget_bytes=1 << 20),
-                   dict(budget_bytes=1 << 24, live_messages=8),
-                   dict(budget_bytes=1 << 30, analysis=analysis),
-                   dict(budget_bytes=1 << 30, analysis=over)):
-            assert eng.max_feasible_batch(**kw) == jeng.max_feasible_batch(**kw), kw
-    else:
-        # half the bytes per message: twice the analytic batch
-        f32 = engine(factors, sizes, values, dtype=torch.float32)
-        assert eng.max_feasible_batch(1 << 20) == 2 * f32.max_feasible_batch(1 << 20)
+    st = eng.plan.stats()
+    item = 2 if dtype is torch.bfloat16 else 4
+    seps = sum(int(np.prod([eng.plan.sizes[v] for v in s]))
+               for s in eng.plan.tree.separators)
+    for task in ("posterior", "map"):
+        row = item * int(eng.ROW_CLIQUES[task] * st["max_clique_states"] + 2 * seps)
+        b = ((1 << 24) - item * st["total_clique_states"]) // row
+        assert eng.max_feasible_batch(1 << 24, task=task) == 1 << (b.bit_length() - 1)
+        # analysis-based estimate: the measured batch plus the headroom's rows
+        analysis = {"batch": 4, "temp_bytes": 123_456}
+        b = 4 + ((1 << 30) - 123_456) // row
+        assert eng.max_feasible_batch(1 << 30, analysis=analysis, task=task) \
+            == 1 << (b.bit_length() - 1)
+    # a budget below the standing potentials still answers 1
+    assert eng.max_feasible_batch(budget_bytes=16) == 1
+    # a step already over budget halves the probe batch, as in JAX
+    for batch, temp, budget in ((8, 2 << 30, 1 << 30), (64, 1 << 20, 1 << 19),
+                                (1, 1 << 30, 1 << 20), (48, 9 << 30, 8 << 30)):
+        over = {"batch": batch, "temp_bytes": temp}
+        assert eng.max_feasible_batch(budget, analysis=over) == \
+            jeng.max_feasible_batch(budget, analysis=over), over
+    with pytest.raises(ValueError, match="live_messages"):
+        eng.max_feasible_batch(1 << 20, live_messages=4)

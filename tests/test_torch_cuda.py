@@ -14,6 +14,13 @@ from junctiontree_tpu_torch.config import DEFAULT
 from junctiontree_tpu_torch.ops import factored_contract as fc
 
 
+@pytest.fixture(autouse=True)
+def _autotune_cache(tmp_path, monkeypatch):
+    """Measured decisions (``ops.autotune``) go to a temporary file; the
+    package's defaults stay as they are."""
+    monkeypatch.setattr(DEFAULT, "autotune_cache_dir", str(tmp_path))
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -751,3 +758,119 @@ def test_mmap_loopy_and_chow_liu_on_cuda_match_cpu(cuda):
     assert got[0] == want[0] and got[3] == want[3]
     for x, y in zip(got[2], want[2]):
         np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.cuda
+def test_tf32_process_setting_does_not_reach_the_package(cuda):
+    """A process that allows TF32 (``set_float32_matmul_precision("high")``)
+    still gets float64-grade posteriors from the package (rtol 1e-4, atol
+    1e-6; logZ 1e-4), and keeps its own setting."""
+    from junctiontree_tpu_torch.models import alarm_like
+
+    factors, sizes, values = alarm_like(seed=0)
+    tree = jt.create_junction_tree(factors, sizes)
+    labels = [tree.plan.table.label_of(v) for v in range(tree.plan.num_vars)]
+    masks = jt.batch_masks_sparse(
+        tree.plan, jt.random_evidence_batch(tree.plan, 256, labels[::3], seed=3))
+    ref_post, ref_logz = tree.engine(device=cuda, dtype=torch.float64) \
+        .set_potentials(values).posterior_batch(masks)
+    eng = tree.engine(device=cuda).set_potentials(values)
+    saved = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("high")
+        post, logz = eng.posterior_batch(masks)
+        torch.cuda.synchronize()
+        assert torch.get_float32_matmul_precision() == "high"
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    np.testing.assert_allclose(logz.cpu().numpy(), ref_logz.cpu().numpy(), atol=1e-4)
+    for a, b in zip(post, ref_post):
+        np.testing.assert_allclose(a.double().cpu().numpy(), b.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_autotune_decision_on_a_serving_shape(cuda, monkeypatch):
+    """One measured decision at the big clique's serving shape: both
+    candidates timed (host and device ms), persisted under the card's name,
+    the kernel's launch counts untouched; the library candidate agrees with
+    the plain version (f32 1e-5, bf16 inputs 2e-2 of max|out|).  Whatever
+    the table says, a big-clique ``posterior_batch`` then launches the
+    kernel for every routed contraction."""
+    from junctiontree_tpu_torch.ops import autotune
+
+    monkeypatch.setattr(autotune, "_CACHE", None)
+    monkeypatch.setattr(autotune, "_VALIDATED", set())
+    assert DEFAULT.autotune  # the package default
+    k1 = fc.factored_masked_contract
+    before = (k1.launches, k1.launches_bf16)
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        winner = autotune.decide(64, 2048, 2, 4096, dtype=name, device=cuda)
+        key = f"{name}:64x2048x2:B4096:{torch.cuda.get_device_name(cuda)}"
+        ent = autotune.report()[key]
+        assert winner == ent["winner"] in ("k1", "library")
+        for field in ("k1_ms", "library_ms", "k1_device_ms", "library_device_ms"):
+            assert ent[field] > 0, field
+        assert ent["bound_ms"] > 0 and ent["margin"] >= 1.0
+        g = torch.Generator(device=cuda).manual_seed(1)
+        pot = torch.rand((2048, 64, 2), generator=g, device=cuda).to(dtype) \
+            .permute(1, 0, 2)
+        w1 = torch.rand((4096, 64), generator=g, device=cuda)
+        w2 = torch.rand((4096, 2048), generator=g, device=cuda).to(dtype)
+        got = fc.library_factored_contract(pot, w1, w2)
+        assert got.dtype == torch.float32
+        assert _rel_err(got, fc.reference_factored_contract(pot, w1, w2)) <= _tol(dtype)
+    assert (k1.launches, k1.launches_bf16) == before
+    monkeypatch.setattr(DEFAULT, "big_clique_min_states", 1 << 8)
+    factors, sizes, values = _hub_model()
+    tree = jt.create_junction_tree(factors, sizes)
+    masks = jt.batch_masks_sparse(tree.plan, jt.random_evidence_batch(
+        tree.plan, 64, ["t0", "t1", "h5"], seed=3))
+    for dtype in (torch.float32, torch.bfloat16):
+        eng = tree.engine(device=cuda, dtype=dtype).set_potentials(values)
+        launches = k1.launches  # bf16 launches included
+        calls = fc.big_clique_sep_message.calls
+        eng.posterior_batch(masks)
+        routed = fc.big_clique_sep_message.calls - calls
+        assert k1.launches - launches == routed > 0
+
+
+@pytest.mark.cuda
+def test_native_compile_on_the_card_host(cuda):
+    """The C++ plan compiler builds with this machine's ``g++`` and gives
+    the Python compiler's plan on the chain of 5,000."""
+    from junctiontree_tpu_torch import native
+    from junctiontree_tpu_torch.models import chain_bn_model
+
+    assert native.available()
+    factors, sizes, _ = chain_bn_model(5000, seed=1)
+    assert jt.compile_plan(factors, sizes).to_json() == jt.compile_plan(
+        factors, sizes, backend="python").to_json()
+
+
+@pytest.mark.cuda
+def test_cli_on_cuda_matches_cpu(cuda, tmp_path, capsys):
+    """``python -m junctiontree_tpu_torch`` on the card prints the CPU run's
+    numbers (MAR and PR, atol 1e-5)."""
+    from junctiontree_tpu_torch import __main__ as cli
+    from junctiontree_tpu_torch.models import grid_mrf_model
+    from junctiontree_tpu_torch.utils.uai import write_uai
+
+    factors, sizes, values = grid_mrf_model(3, 3, seed=4)
+    names = list(sizes)
+    model = tmp_path / "m.uai"
+    model.write_text(write_uai([[names.index(v) for v in f] for f in factors],
+                               {i: sizes[v] for i, v in enumerate(names)}, values))
+    evid = tmp_path / "m.evid"
+    evid.write_text("1 4 1\n")
+    for task in ("MAR", "PR"):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            assert cli.main([str(model), "--evidence", str(evid), "--task", task,
+                             "--device", dev]) == 0
+            out[dev] = capsys.readouterr().out.splitlines()
+        assert out["cuda"][0] == out["cpu"][0] == task
+        np.testing.assert_allclose(
+            [float(t) for t in out["cuda"][1].split()],
+            [float(t) for t in out["cpu"][1].split()], atol=1e-5)

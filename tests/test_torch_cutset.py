@@ -226,8 +226,8 @@ def test_cutset_engine_hailfinder_class():
     for v in masks:
         state = np.argmax(masks[v], axis=1)
         np.testing.assert_allclose(got[v].numpy()[np.arange(B), state], 1.0, atol=1e-4)
-    # the chunk arithmetic: clique-sized buffers under the budget
-    states = st["max_clique_states"]
+    # the chunk arithmetic: every clique's belief of a chunk under the budget
+    states = st["total_clique_states"]
     assert ce._chunk_for(B) == max(1, min(ce.num_states, (8 << 30) // (4 * B * states * 2), 256))
     assert ce._chunk_for(B, "message") == max(
         1, min(ce.num_states, (8 << 30) // (4 * B * states * 3), 256))

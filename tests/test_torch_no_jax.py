@@ -102,6 +102,34 @@ lrain = lposts[loopy.table.id_of("rain")]
 assert abs(float(lrain.sum()) - 1) < 1e-5 and float(lrain[1]) > 0.5  # approximate
 from junctiontree_tpu_torch.utils import bif, uai
 assert uai.parse_uai(uai.write_uai([[0, 1]], {0: 2, 1: 2}, [np.ones((2, 2))]))[0] == [[0, 1]]
+# the CLI, the compatibility shims and Config, the native compiler, routing
+import contextlib, io
+from junctiontree_tpu_torch import __main__ as cli, computation, construction, native
+from junctiontree_tpu_torch.ops import autotune
+from junctiontree_tpu_torch.sum_product import SumProduct
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "m.uai")
+    with open(path, "w") as f:
+        f.write(uai.write_uai([[0, 1]], {0: 2, 1: 2}, [np.array([[1.0, 2.0], [3.0, 4.0]])]))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert cli.main([path, "--task", "PR", "--device", "cpu"]) == 0
+assert abs(float(buf.getvalue().split()[1]) - 1.0) < 1e-6
+ceng2 = jt.Config(semiring="log_sum_exp").engine(factors, sizes, values, device="cpu")
+assert round(float(ceng2.posterior_batch(jt.batch_masks_sparse(
+    tree.plan, [{"wet_grass": 1}], jt.LOG_SUM_EXP))[0][rain][0, 1]), 4) == 0.7079
+assert jt.api.einsum([np.ones((2, 3))], [["a", "b"]], ["a"], device="cpu").tolist() == [3.0, 3.0]
+assert SumProduct(device="cpu").einsum(np.ones(2), ["a"], []) == 2.0
+cb, sb = computation.compute_beliefs(tree.plan, eng._pots_np, device="cpu")
+assert len(cb) == tree.plan.tri.num_cliques
+assert construction.find_subtree(tree.tree, 0)
+assert native.available()
+big_chain = chain_bn_model(600, seed=0)
+assert jt.compile_plan(*big_chain[:2]).tri.num_cliques == 599
+margs, z = eng.query_batch_vmap(jt.batch_masks(tree.plan, [{"wet_grass": 1}]))
+assert abs(float(z[0]) - p_wet) < 1e-6
+assert isinstance(autotune.report(), dict)
+assert jt.apply_evidence([np.ones((2, 2))], [["rain", "wet_grass"]], {"rain": 1})[0].shape == (1, 2)
 assert not any(m.startswith("junctiontree_tpu.") or m == "junctiontree_tpu"
                for m in sys.modules)
 print("ok")
@@ -121,7 +149,8 @@ def test_imports_and_serves_without_jax():
 
 def test_no_module_of_the_port_names_jax():
     """No source file of the package, nor ``chip_smoke.py``, imports ``jax``
-    or the JAX package (the nine modules of learning and the solvers
+    or the JAX package (the modules of learning and the solvers, the CLI,
+    the compatibility shims, the native compiler and measured routing
     included)."""
     import re
 
@@ -133,7 +162,9 @@ def test_no_module_of_the_port_names_jax():
     rel = {os.path.relpath(f, pkg) for f in files}
     for mod in ("learn.py", "learn_chain.py", "sampling.py", "structure.py",
                 "mmap.py", "cutset.py", "approx.py", "utils/uai.py",
-                "utils/bif.py"):
+                "utils/bif.py", "__main__.py", "native/__init__.py",
+                "construction.py", "computation.py", "sum_product.py",
+                "ops/autotune.py", "config.py"):
         assert mod in rel, mod
     pat = re.compile(
         r"^\s*(import|from)\s+(jax|jaxlib|optax|junctiontree_tpu)(\.|\s|$)", re.M)

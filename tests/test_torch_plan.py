@@ -1,5 +1,8 @@
 """The port compiles the same plans as the JAX package: ``Plan.to_json()``
-is equal string for string, and each package loads the other's JSON."""
+is equal string for string, and each package loads the other's JSON.  The
+chain of 600 and the star of 1,000 leaves have 512 variables or more, so
+``backend="auto"`` compiles them with the native compiler in both packages;
+they are also held to the JAX package's Python compiler."""
 
 import pytest
 
@@ -13,11 +16,15 @@ def _model(name):
         return models.sprinkler_model()
     if name == "grid4x4":
         return models.grid_mrf_model(4, 4, seed=0)
+    if name == "chain600":
+        return models.chain_bn_model(600, seed=1)
+    if name == "star1000":
+        return models.star_bn_model(1000, card=3)
     return getattr(models, name)(seed=0)
 
 
 MODELS = ["sprinkler", "grid4x4", "alarm_like", "insurance_like",
-          "hailfinder_like"]
+          "hailfinder_like", "chain600", "star1000"]
 
 
 @pytest.mark.parametrize("name", MODELS)
@@ -41,7 +48,12 @@ def test_plan_from_json_loads_the_other_package(name):
     assert jax_from_json(js_torch).to_json() == js_torch
 
 
-def test_native_backend_not_ported():
-    factors, sizes, _ = models.sprinkler_model()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        jt.compile_plan(factors, sizes, backend="native")
+@pytest.mark.parametrize("name", ["chain600", "star1000"])
+def test_native_plan_matches_jax_python_compiler(name):
+    """Above the threshold the port's ``auto`` (native) plan equals the JAX
+    package's pure-Python plan, and the port's own Python compiler's."""
+    factors, sizes, _ = _model(name)
+    ours = jt.compile_plan(factors, sizes).to_json()
+    assert ours == jt_jax.compile_plan(factors, sizes, backend="python").to_json()
+    if name == "chain600":  # the star's Python compile takes seconds
+        assert ours == jt.compile_plan(factors, sizes, backend="python").to_json()
