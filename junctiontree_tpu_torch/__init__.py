@@ -48,9 +48,15 @@ card launches the kernel, and ``ops.autotune`` measures it against the
 library per shape as a diagnostic; every float32 product runs at the
 package's precision (``ops.semirings.set_matmul_precision``, default
 "highest": TF32 off).
+
+Across devices and processes (``parallel``): ``make_mesh`` builds a grid of
+devices, ``Engine.shard_batch`` / ``shard_model`` / ``shard_sequence`` split
+rows, oversized cliques (the kernel once per model shard) and long chains
+over it, and ``parallel.forest``, ``parallel.batch`` and
+``parallel.multihost`` follow the JAX package's ``parallel`` modules.
 """
 
-from . import approx, cutset, learn, learn_chain, mmap, sampling, structure
+from . import approx, cutset, learn, learn_chain, mmap, parallel, sampling, structure
 from .api import CliqueGraph, FactorGraph, JunctionTree, create_junction_tree
 from .approx import LoopyEngine
 from .config import DEFAULT, Config

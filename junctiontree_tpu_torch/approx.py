@@ -33,6 +33,7 @@ import torch
 
 from .executor import resolve_device
 from .labels import intern_factors
+from .parallel.mesh import row_blocks
 
 _TINY = 1e-30
 
@@ -74,9 +75,20 @@ class LoopyEngine:
         tol: float = 1e-6,
         chunk_iters: int = 50,
         device=None,
+        mesh=None,
+        batch_axis: str = "batch",
     ):
         """device: where the potentials and messages live (default CUDA
-        device 0; ``"cpu"`` runs on the CPU)."""
+        device 0, or with ``mesh`` the first device of its ``batch_axis``;
+        ``"cpu"`` runs on the CPU).  mesh / batch_axis: an optional
+        ``parallel.Mesh``: the evidence batch (the trailing axis of the
+        message layout) is split over the devices of ``batch_axis``, each
+        device floods its rows, and every chunk of iterations ends on the
+        largest change over all rows, so the iterations match the unsplit
+        run's."""
+        self.mesh, self.batch_axis = mesh, batch_axis
+        if device is None and mesh is not None:
+            device = mesh.local_devices(batch_axis)[0]
         self.device = resolve_device(device)
         self.table, self.factors, self.sizes = intern_factors(factors, sizes)
         if not self.factors:
@@ -152,12 +164,23 @@ class LoopyEngine:
         ).astype(np.float32)
 
         self._pots: Optional[List[torch.Tensor]] = None  # stacked per bucket
+        self._pots_on: Dict[str, List[torch.Tensor]] = {}  # per mesh device
         self._cache: dict = {}
         if values is not None:
             self.set_potentials(values)
 
-    def _dev(self, x, dtype=torch.float32) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
+    def _dev(self, x, dtype=torch.float32, device=None) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x), dtype=dtype,
+                               device=self.device if device is None else device)
+
+    def _pots_for(self, device) -> List[torch.Tensor]:
+        """The stacked potentials on ``device`` (copied once)."""
+        if torch.device(device) == self.device:
+            return self._pots
+        key = str(device)
+        if key not in self._pots_on:
+            self._pots_on[key] = [p.to(device) for p in self._pots]
+        return self._pots_on[key]
 
     # ------------------------------------------------------------------
     def set_potentials(self, values: Sequence[np.ndarray]) -> "LoopyEngine":
@@ -178,11 +201,13 @@ class LoopyEngine:
             )
             for fis in self.bucket_factors
         ]
+        self._pots_on = {}
         self._cache.clear()
         return self
 
     # ------------------------------------------------------------------
-    def _program(self, B: int, mode: str = "sum", obs_ids: tuple = ()):
+    def _program(self, B: int, mode: str = "sum", obs_ids: tuple = (),
+                 device=None):
         """(masks_obs [O,K,B], m [E,K,B]) -> (m', delta): one chunk of
         flooding iterations, plus a belief/readout program.
 
@@ -197,20 +222,23 @@ class LoopyEngine:
 
         mode: "sum" = sum-product (posteriors + Bethe logZ), "max" =
         max-product (approximate MAP max-marginals; readout returns beliefs
-        and a zero logZ placeholder)."""
-        edge_var = self._dev(self.edge_var_arr, torch.int64)
-        edge_lane = self._dev(self.edge_lane)[:, :, None]    # [E,K,1]
-        var_lane = self._dev(self.var_lane)[:, :, None]      # [V,K,1]
-        inc_idx = self._dev(self.inc_idx, torch.int64)       # [V,D]
-        degree = self._dev(self.degree)
+        and a zero logZ placeholder).  ``device``: where the program runs
+        (default the engine's)."""
+        device = self.device if device is None else device
+        dev = lambda x, dtype=torch.float32: self._dev(x, dtype, device)
+        edge_var = dev(self.edge_var_arr, torch.int64)
+        edge_lane = dev(self.edge_lane)[:, :, None]    # [E,K,1]
+        var_lane = dev(self.var_lane)[:, :, None]      # [V,K,1]
+        inc_idx = dev(self.inc_idx, torch.int64)       # [V,D]
+        degree = dev(self.degree)
         V, E, K = self.num_vars, self.E, self.K
-        pots = self._pots
+        pots = self._pots_for(device)
         damping = self.damping
         reduce_op = torch.amax if mode == "max" else torch.sum
-        obs_arr = self._dev(np.asarray(obs_ids, dtype=np.int64), torch.int64)
+        obs_arr = dev(np.asarray(obs_ids, dtype=np.int64), torch.int64)
 
         def dense_masks(masks_obs):
-            dm = torch.ones((V, K, B), dtype=torch.float32, device=self.device)
+            dm = torch.ones((V, K, B), dtype=torch.float32, device=device)
             if len(obs_ids):
                 dm[obs_arr] = masks_obs
             return dm
@@ -368,25 +396,39 @@ class LoopyEngine:
 
     def _run(self, mask_batch, batch: int, mode: str):
         obs_ids, masks_np = self._stack_obs_masks(mask_batch, batch)
-        key = ("prog", batch, mode, obs_ids)
-        if key not in self._cache:
-            self._cache[key] = self._program(batch, mode, obs_ids)
-        chunk, readout = self._cache[key]
-        masks = self._dev(masks_np)
-        m = torch.ones(
-            (self.E, self.K, batch), dtype=torch.float32, device=self.device
-        )
+        if self.mesh is None:
+            parts = [(self.device, slice(0, batch))]
+        else:
+            devs = self.mesh.local_devices(self.batch_axis)
+            parts = list(zip(devs, row_blocks(batch, len(devs))))
+        runs = []   # per device: (chunk, readout, masks, messages)
+        for device, rows in parts:
+            n = rows.stop - rows.start
+            key = ("prog", n, mode, obs_ids, str(device))
+            if key not in self._cache:
+                self._cache[key] = self._program(n, mode, obs_ids, device)
+            chunk, readout = self._cache[key]
+            m = torch.ones((self.E, self.K, n), dtype=torch.float32,
+                           device=device)
+            runs.append([chunk, readout,
+                         self._dev(masks_np[..., rows], device=device), m])
         iters = 0
         d = None
         while iters < self.max_iters:
-            m, d = chunk(masks, m)
+            deltas = []
+            for run in runs:
+                run[3], dr = run[0](run[2], run[3])
+                deltas.append(dr.to(self.device))
+            d = torch.stack(deltas).max()
             iters += self.chunk_iters
             # tol<=0 disables early exit, so skip the per-chunk device->host
             # delta read (each one waits for the device); the final delta
             # is read once below
             if self.tol > 0 and float(d) < self.tol:
                 break
-        b_v, logz = readout(masks, m)
+        outs = [readout(masks, m) for _, readout, masks, m in runs]
+        b_v = torch.cat([b.to(self.device) for b, _ in outs], dim=1)
+        logz = torch.cat([z.to(self.device) for _, z in outs])
         return b_v, logz, {"iters": iters, "delta": float(d)}
 
     def map_assignment_batch(

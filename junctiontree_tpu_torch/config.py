@@ -36,6 +36,11 @@ class Config:
     # kernel on the card; counterpart of the JAX ``pallas_min_states``)
     big_clique_min_states: int = 1 << 17
 
+    # tensor parallelism: clique state-space size from which an Engine with
+    # a model mesh (Engine.shard_model) serves the clique split over the
+    # mesh's model axis instead of on one device
+    tp_min_states: int = 1 << 26
+
     # ops/autotune.decide times the kernel against two library products per
     # big-clique contraction shape on the card and caches the faster; off,
     # it answers "k1" without measuring.  A diagnostic: serving always

@@ -37,6 +37,8 @@ import torch
 
 from .config import DEFAULT as _CFG
 from .ops.factored_contract import big_clique_sep_message
+from .parallel.mesh import MODEL_AXIS, Sharding, row_blocks
+from .parallel.tp import ShardedPotential, tp_contract_fn
 from .ops.semirings import (
     _LOW_PRECISION,
     LOG_SUM_EXP,
@@ -380,13 +382,25 @@ def _bcontract(semiring, operands, operand_vars, out_vars):
     return semiring.contract(operands, operand_vars, out), batched
 
 
-def _try_big_clique_route(plan, semiring, ops, ovs, out_vars, min_states):
+def _try_big_clique_route(plan, semiring, ops, ovs, out_vars, min_states,
+                          tp=None):
     """Route a collect/distribute/marginal contraction through the factored
     big-clique contraction when the semiring is sum-product, the clique has
     at least ``min_states`` states and every batched operand is either a
     single-variable mask (evidence) or a child message whose scope doesn't
     cross the output-separator boundary.  Returns (result, batched) or
-    None."""
+    None.
+
+    ``tp = (mesh, tp_min_states, shard_batch, notes, device)`` (an
+    ``Engine.shard_model`` engine) also routes every clique of at least
+    ``tp_min_states`` states through the contraction sharded over the
+    mesh's model axis (``parallel.tp.tp_contract_fn``), whether or not a
+    batched operand touches it: without one, it runs at a unit batch of
+    ones weights, so a sharded potential is never assembled on one device.
+    A TP-sized contraction that cannot be factored (a message crosses the
+    separator boundary) falls to :func:`routed_contract`, which gathers the
+    potential onto ``device``; the reason goes to ``notes``
+    (``Engine.describe()["tp_fallbacks"]``)."""
     if semiring != SUM_PRODUCT:
         return None
     batched: List[tuple] = []
@@ -400,30 +414,58 @@ def _try_big_clique_route(plan, semiring, ops, ovs, out_vars, min_states):
                 msgs.append((tuple(v[1:]), o))
         else:
             unbatched.append((o, list(v)))
-    if not unbatched or not (batched or msgs):
+    if not unbatched:
         return None
     scope: List[int] = []
     for _, v in unbatched:
         for x in v:
             if x not in scope:
                 scope.append(x)
-    if _vars_states(plan.sizes, scope) < min_states:
+    states = _vars_states(plan.sizes, scope)
+    tp_sized = tp is not None and states >= tp[1]
+
+    def refuse(reason):
+        if tp_sized:
+            tp[3].append(
+                f"TP fallback (gathered onto one device) on {states:,}-state "
+                f"scope {scope} -> {list(out_vars)}: {reason}"
+            )
+
+    if not tp_sized and (states < min_states or not (batched or msgs)):
         return None
     if any(x not in scope for x in out_vars):
-        return None
+        return refuse("output variables outside the unbatched scope")
     if any(x not in scope for _, x in batched):
-        return None
+        return refuse("evidence mask outside the unbatched scope")
     out_set = set(out_vars)
     for vs, _ in msgs:
         if any(x not in scope for x in vs):
-            return None
+            return refuse(f"message scope {vs} outside the unbatched scope")
         # a message must factor entirely into the kernel weights (rest
         # scope) or entirely into the output (separator scope)
         if not (all(x in out_set for x in vs)
                 or all(x not in out_set for x in vs)):
-            return None
+            return refuse(f"message scope {vs} crosses the separator boundary")
+    contract_fn = None
+    squeeze = False
+    if tp_sized:
+        shard_batch = tp[2]
+        if not (batched or msgs):
+            rest0 = [x for x in scope if x not in out_set]
+            if not rest0:
+                return refuse("contraction reduces nothing (scope == output)")
+            batched = [(torch.ones((1, plan.sizes[rest0[0]]),
+                                   dtype=torch.float32, device=tp[4]),
+                        rest0[0])]
+            squeeze, shard_batch = True, False
+        contract_fn = tp_contract_fn(tp[0], shard_batch=shard_batch)
     pot = unbatched[0][0]
-    if not (len(unbatched) == 1 and unbatched[0][1] == scope):
+    if isinstance(pot, ShardedPotential):
+        # the clique's potential comes first, so the scope is its variables;
+        # its unbatched messages are multiplied in block by block
+        pot = pot.times([(o, [scope.index(x) for x in v])
+                         for o, v in unbatched[1:]])
+    elif not (len(unbatched) == 1 and unbatched[0][1] == scope):
         # the clique potential times its unbatched messages, stored like the
         # potential (under bfloat16 storage the kernel reads bfloat16)
         pot = semiring.contract(
@@ -432,17 +474,25 @@ def _try_big_clique_route(plan, semiring, ops, ovs, out_vars, min_states):
     masks: Dict[int, torch.Tensor] = {}
     for o, x in batched:
         masks[x] = o if x not in masks else masks[x] * o
-    out = big_clique_sep_message(pot, scope, masks, list(out_vars), msgs=msgs)
+    out = big_clique_sep_message(pot, scope, masks, list(out_vars), msgs=msgs,
+                                 contract_fn=contract_fn)
+    if squeeze:
+        return out[0], False
     return out, True
 
 
-def routed_contract(plan, semiring, ops, ovs, outv, *, min_states):
+def routed_contract(plan, semiring, ops, ovs, outv, *, min_states, tp=None):
     """One contraction through the routing ladder: the factored big-clique
-    contraction, else the semiring's planned batched contraction.  Returns
-    (result, batched)."""
-    routed = _try_big_clique_route(plan, semiring, ops, ovs, outv, min_states)
+    contraction, else the semiring's planned batched contraction (on a
+    model-sharded engine with any sharded potential gathered onto the
+    engine's device first).  Returns (result, batched)."""
+    routed = _try_big_clique_route(
+        plan, semiring, ops, ovs, outv, min_states, tp=tp)
     if routed is not None:
         return routed
+    if tp is not None:
+        ops = [o.gather() if isinstance(o, ShardedPotential) else o
+               for o in ops]
     return _bcontract(semiring, ops, ovs, outv)
 
 
@@ -552,6 +602,7 @@ class BatchedProgramBuilder:
         semiring: Semiring = SUM_PRODUCT,
         observed: Optional[Sequence[int]] = None,
         rescale: bool = False,
+        tp=None,
     ):
         if rescale and semiring != SUM_PRODUCT:
             raise ValueError(
@@ -560,6 +611,7 @@ class BatchedProgramBuilder:
         self.plan = plan
         self.semiring = semiring
         self.rescale = rescale
+        self.tp = tp
         tree = plan.tree
         if observed is None:
             observed = list(range(plan.num_vars))
@@ -625,7 +677,7 @@ class BatchedProgramBuilder:
     def _contract(self, ops, ovs, outv):
         out, b = routed_contract(
             self.plan, self.semiring, ops, ovs, outv,
-            min_states=self.min_states,
+            min_states=self.min_states, tp=self.tp,
         )
         expect_b = any(vs and vs[0] == BATCH for vs in ovs)
         if b != expect_b:
@@ -876,6 +928,7 @@ def batched_propagate_program(
     semiring: Semiring = SUM_PRODUCT,
     observed: Optional[Sequence[int]] = None,
     rescale: bool = False,
+    tp=None,
 ):
     """Build ``fn(pots, masks) -> (var_marginals [B,size_v] list, Z [B])``.
 
@@ -888,8 +941,10 @@ def batched_propagate_program(
     ``rescale=True`` (linear sum-product only): every message is divided by
     its max and the collect offsets accumulate, so the returned Z is
     ``logZ`` [B] and the marginals are unnormalized but bounded — normalize
-    per variable (this is what ``Engine.posterior_batch`` does)."""
-    return BatchedProgramBuilder(plan, semiring, observed, rescale=rescale).full()
+    per variable (this is what ``Engine.posterior_batch`` does).  ``tp``:
+    see :func:`_try_big_clique_route`."""
+    return BatchedProgramBuilder(
+        plan, semiring, observed, rescale=rescale, tp=tp).full()
 
 
 def resolve_device(device) -> torch.device:
@@ -981,6 +1036,15 @@ class Engine:
         self._fused_sched = None              # lazy fused schedule
         self._fused_stack = None              # stacked fused group potentials
         self._max_engine: Optional["Engine"] = None   # cached MAP sibling
+        self._mask_sharding = None            # set by shard_batch()
+        self._replicas: Dict[str, "Engine"] = {}     # per device of it
+        self._model_mesh = None               # set by shard_model()
+        self._tp_min_states = _CFG.tp_min_states
+        self._tp_shard_batch = False
+        self._tp_notes: List[str] = []        # gathered-contraction notes
+        self._seq_mesh = None                 # set by shard_sequence()
+        self._seq_axis = "batch"
+        self._seq_min_len = 2048
 
     def _place(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=self.compute_dtype, device=self.device)
@@ -1004,7 +1068,8 @@ class Engine:
     def propagate(self, values: Sequence[np.ndarray]) -> List[np.ndarray]:
         sr = self.semiring
         vals = [sr.from_linear(self._place(v)) for v in values]
-        pots = evaluate_cliques(self.plan, vals, sr)
+        pots = evaluate_cliques(self.plan, vals, sr,
+                                max_states=self._feasible_cap())
         beliefs, _ = propagate_cliques(self.plan, pots, sr)
         return [
             sr.to_linear(x).cpu().numpy()
@@ -1025,7 +1090,9 @@ class Engine:
             with np.errstate(divide="ignore"):
                 vals = [np.log(v) for v in vals]
         with TIMERS.phase("engine.evaluate"):
-            pots = evaluate_cliques_np(self.plan, vals, self.semiring, dtype=dtype)
+            pots = evaluate_cliques_np(self.plan, vals, self.semiring,
+                                       dtype=dtype,
+                                       max_states=self._feasible_cap())
         return self.set_clique_potentials(pots)
 
     def set_clique_potentials(self, pots: Sequence[np.ndarray]) -> "Engine":
@@ -1044,23 +1111,63 @@ class Engine:
                     % (c, tuple(np.shape(p)), self.plan.clique_shape(c))
                 )
         self._pots_np = [np.asarray(p) for p in pots]
-        self._pots = [self._place(p) for p in self._pots_np]
+        self._pots = self._place_pots(self._pots_np)
         # everything derived from the potentials is rebuilt at next use
         self._pots_prog = None
         self._chain_A = None
         self._fused_stack = None
         self._max_engine = None
+        self._replicas = {}
         return self
 
-    def _require_pots(self) -> List[torch.Tensor]:
+    def _place_pots(self, pots: Sequence[np.ndarray]) -> list:
+        """Install the potentials on the device; on a ``shard_model`` engine
+        every clique of at least ``tp_min_states`` states is split flat over
+        the mesh's model axis (a :class:`parallel.tp.ShardedPotential`).  A
+        clique whose states do not divide over the axis is refused above the
+        single-device cap, and placed whole (with a note) below it."""
+        if self._model_mesh is None:
+            return [self._place(p) for p in pots]
+        n = int(self._model_mesh.shape[MODEL_AXIS])
+        rows = self._model_mesh.devices.shape[0] if self._tp_shard_batch else 1
+        out = []
+        for c, p in enumerate(pots):
+            if p.size >= self._tp_min_states:
+                if p.size % n == 0:
+                    out.append(ShardedPotential(
+                        p, self._model_mesh, self.compute_dtype,
+                        self.compute_dtype, self.device, n_rows=rows))
+                    continue
+                if p.size > MAX_CLIQUE_STATES:
+                    raise ValueError(
+                        f"clique {c} has {p.size:,} states: above the "
+                        f"single-device cap and not divisible by the model "
+                        f"axis size {n}; use a model-axis size that divides "
+                        "the clique state space"
+                    )
+                self._tp_notes.append(
+                    f"clique {c} ({p.size:,} states) not divisible by model "
+                    f"axis {n}; placed unsharded on one device"
+                )
+            out.append(self._place(p))
+        return out
+
+    def _require_pots(self, whole: bool = True) -> list:
+        """The potentials on the device, each whole (a sharded one gathered
+        onto the engine's device), or with ``whole=False`` as they are
+        stored (what the general program, which routes sharded cliques
+        through the sharded contraction, reads)."""
         if self._pots is None:
             raise RuntimeError("call set_potentials(values) before querying")
+        if whole and self._model_mesh is not None:
+            return [p.gather() if isinstance(p, ShardedPotential) else p
+                    for p in self._pots]
         return self._pots
 
-    def _program_pots(self) -> List[torch.Tensor]:
+    def _program_pots(self) -> list:
         """Potentials as the general serving program reads them: cast to
         the storage dtype once per ``set_potentials``."""
-        pots = self._require_pots()
+        pots = self._require_pots(whole=False)
         storage = self.storage_dtype()
         if storage == self.compute_dtype:
             return pots
@@ -1198,6 +1305,8 @@ class Engine:
         rt = report()
         if rt:
             st["kernel_routing"] = rt
+        if self._model_mesh is not None:
+            st["tp_fallbacks"] = list(self._tp_notes)
         return st
 
     def __repr__(self) -> str:
@@ -1271,7 +1380,8 @@ class Engine:
         fn = self._programs.get(key)
         if fn is None:
             fn = batched_propagate_program(
-                self.plan, self.semiring, list(ids), rescale=rescale
+                self.plan, self.semiring, list(ids), rescale=rescale,
+                tp=self._tp(),
             )
             self._programs[key] = fn
         return fn
@@ -1286,7 +1396,9 @@ class Engine:
         unbatched), or a full per-var-id list of [B, size_v] arrays; masks
         are in the semiring's space.  Runs the batch-aware program without
         rescaling, on unbatched potentials."""
-        pots = self._require_pots()
+        if self._mask_sharding is not None:
+            return self._rows_sharded("query_batch", mask_batch)
+        pots = self._require_pots(whole=False)
         ids, masks = self._masks_to_program_args(mask_batch)
         return self._general_program(ids, False)(pots, masks)
 
@@ -1341,21 +1453,37 @@ class Engine:
         return _normalize(sr, margs), logz
 
     def _posterior_chain(self, ids, masks):
+        """The chain program; on a ``shard_sequence`` engine and a chain of
+        at least ``min_len`` cliques the log-depth program, with the steps
+        of the transitions split over the axis's devices."""
         from .scan_executor import (
             StackedPosteriors,
+            chain_posterior_parallel_program,
             chain_posterior_program,
             stack_chain_potentials,
         )
 
         layout = self._chain_layout()
-        prog = self._programs.get(("chain",))
+        parallel = (self._seq_mesh is not None
+                    and len(layout.clique_order) >= self._seq_min_len)
+        key = ("chain_parallel",) if parallel else ("chain",)
+        prog = self._programs.get(key)
         if prog is None:
-            prog = chain_posterior_program(self.plan, layout)
-            self._programs[("chain",)] = prog
+            make = (chain_posterior_parallel_program if parallel
+                    else chain_posterior_program)
+            prog = make(self.plan, layout)
+            self._programs[key] = prog
         if self._chain_A is None:
-            self._chain_A = self._place(
-                stack_chain_potentials(layout, self._pots_np)
-            )
+            A = stack_chain_potentials(layout, self._pots_np)
+            if parallel:
+                devs = self._seq_mesh.local_devices(self._seq_axis)
+                self._chain_A = [
+                    torch.as_tensor(A[rows], dtype=self.compute_dtype,
+                                    device=dev)
+                    for rows, dev in zip(row_blocks(len(A), len(devs)), devs)
+                ]
+            else:
+                self._chain_A = self._place(A)
         stacked, logz = prog(self._chain_A, dict(zip(ids, masks)))
         return StackedPosteriors(stacked, layout.var_order), logz
 
@@ -1427,7 +1555,10 @@ class Engine:
             chunk = int(chunk)
             if chunk < 1:
                 raise ValueError("chunk must be >= 1")
-        self._require_pots()
+        if self._mask_sharding is not None:
+            return self._rows_sharded("posterior_batch", mask_batch,
+                                      mode=mode, chunk=chunk)
+        self._require_pots(whole=False)
         ids, masks = self._masks_to_program_args(mask_batch)
         B = int(masks[0].shape[0]) if masks else 1
         if chunk is None or B <= chunk:
@@ -1523,6 +1654,8 @@ class Engine:
         once, several times B x (total clique states) elements: choose B
         from the plan's ``total_clique_states`` and the device's memory."""
         self._require_probability_semiring("entropy")
+        if self._mask_sharding is not None:
+            return self._rows_sharded("entropy_batch", mask_batch)
         pots = self._require_pots()
         ids, masks = self._masks_to_program_args(mask_batch)
         if self.semiring == SUM_PRODUCT:
@@ -1624,6 +1757,10 @@ class Engine:
         from .joint import batched_joint_marginal_program
 
         qids = self._joint_query_ids(variables)
+        if self._mask_sharding is not None:
+            return self._rows_sharded("joint_marginal_batch", mask_batch,
+                                      variables=variables,
+                                      max_states=max_states)
         pots = self._require_pots()
         ids, masks = self._masks_to_program_args(mask_batch)
         key = ("joint_batch", tuple(qids), ids, int(max_states))
@@ -1767,13 +1904,16 @@ class Engine:
         takes the Viterbi loop.  Returns (assignments [B, num_vars]
         ``torch.int32``, scores [B]) on the engine's device; a score below
         -1e29 marks a row with no feasible assignment."""
-        if self.semiring != MAX_PRODUCT:
-            return self._max_delegate().map_assignment_batch(mask_batch, chunk)
         if chunk is not None:
             chunk = int(chunk)
             if chunk < 1:
                 raise ValueError("chunk must be >= 1")
-        self._require_pots()
+        if self._mask_sharding is not None:
+            return self._rows_sharded("map_assignment_batch", mask_batch,
+                                      chunk=chunk)
+        if self.semiring != MAX_PRODUCT:
+            return self._max_delegate().map_assignment_batch(mask_batch, chunk)
+        self._require_pots(whole=False)
         ids, masks = self._log_mask_args(mask_batch)
         run = self._map_program(ids)
         B = int(masks[0].shape[0])
@@ -1807,7 +1947,7 @@ class Engine:
             return self._max_delegate().top_k_assignments(evidence, k)
         from .scan_executor import _KBEST_PAD_FLOOR, chain_kbest_program
 
-        self._require_pots()
+        self._require_pots(whole=False)
         masks = self._evidence_log_masks(evidence)
         layout = self._chain_layout()
         if layout is None:
@@ -1844,6 +1984,9 @@ class Engine:
         ``top_k_assignments`` prefers the chain loop there."""
         from .map_executor import tree_kbest_program
 
+        if self._mask_sharding is not None:
+            return self._rows_sharded("top_k_assignments_batch", mask_batch,
+                                      k=k)
         if self.semiring != MAX_PRODUCT:
             return self._max_delegate().top_k_assignments_batch(mask_batch, k)
         pots = self._require_pots()
@@ -1933,7 +2076,154 @@ class Engine:
         O(cliques) (``incremental.IncrementalSession``).
 
         ``mask_batch``: dict {var label: [B, size_v] linear masks}, the
-        base evidence; unlisted variables are unobserved."""
-        from .incremental import IncrementalSession
+        base evidence; unlisted variables are unobserved.  On a
+        ``shard_batch`` engine each device opens a session on its rows
+        (``incremental.RowShardedSession``)."""
+        from .incremental import IncrementalSession, RowShardedSession
 
+        if self._mask_sharding is not None:
+            devs, blocks = self._row_split(mask_batch)
+            return RowShardedSession(
+                [self._replica(d).incremental(m) for d, m in zip(devs, blocks)],
+                devs[0])
         return IncrementalSession(self, mask_batch)
+
+    # -- parallelism over a mesh (parallel/) --
+    def shard_batch(self, mesh, axis: str = "batch") -> "Engine":
+        """Data parallelism: every batched query (``posterior_batch``, also
+        with ``chunk=``, ``query_batch``, ``entropy_batch``,
+        ``joint_marginal_batch``, ``map_assignment_batch``,
+        ``top_k_assignments_batch``, ``incremental``) splits its evidence
+        rows over the devices of ``axis`` of ``mesh`` (contiguous blocks,
+        sizes differing by at most one).  Each device serves its rows on
+        its own cached replica of the engine and potentials; the results
+        are concatenated on the axis's first device."""
+        self._mask_sharding = Sharding(mesh, (axis, None))
+        self._replicas = {}
+        return self
+
+    def shard_model(self, mesh, min_states: Optional[int] = None,
+                    shard_batch: bool = False) -> "Engine":
+        """Tensor parallelism: serve cliques of at least ``min_states``
+        states (default ``config.DEFAULT.tp_min_states``) split over the
+        ``model`` axis of ``mesh`` instead of refusing them in
+        ``check_feasible``: each such potential is stored flat-sharded over
+        the axis's devices, and every contraction the general program makes
+        on it runs as the factored big-clique contraction over blocks of R1,
+        one per model device, summed in a fixed order
+        (``parallel.tp.tp_contract_fn``; on the card every block launches
+        the CUDA kernel).  The feasibility cap scales to
+        ``MAX_CLIQUE_STATES * n_model``.  ``shard_batch=True`` also splits
+        those contractions' rows over the mesh's ``batch`` axis (B must
+        then divide by its size).  Sum-product engines only; call before
+        ``set_potentials`` for a model above the single-device cap."""
+        if self.semiring != SUM_PRODUCT:
+            raise ValueError(
+                "shard_model requires the sum_product semiring (the TP "
+                "route is a linear factored contraction)"
+            )
+        self._model_mesh = mesh
+        self._tp_min_states = (
+            _CFG.tp_min_states if min_states is None else int(min_states))
+        self._tp_shard_batch = bool(shard_batch)
+        # programs built without the sharded route are stale
+        self._programs.clear()
+        self._pots_prog = None
+        self._replicas = {}
+        if self._pots_np is not None:
+            self._pots = self._place_pots(self._pots_np)
+        return self
+
+    def shard_sequence(self, mesh, axis: str = "batch",
+                       min_len: int = 2048) -> "Engine":
+        """Sequence parallelism for chain plans: on a uniform chain of at
+        least ``min_len`` cliques, ``posterior_batch`` in auto mode takes
+        the log-depth program
+        (``scan_executor.chain_posterior_parallel_program``) with the chain
+        steps split over the devices of ``axis`` of ``mesh``.  It does K^3
+        work per step against the sequential program's K^2, so shorter
+        chains keep the sequential program; other plans ignore the
+        setting."""
+        self._seq_mesh, self._seq_axis = mesh, axis
+        self._seq_min_len = int(min_len)
+        self._programs.clear()
+        self._chain_A = None
+        self._replicas = {}
+        return self
+
+    def _tp(self):
+        """The sharded route's settings for the general program, or None."""
+        if self._model_mesh is None:
+            return None
+        return (self._model_mesh, self._tp_min_states, self._tp_shard_batch,
+                self._tp_notes, self.device)
+
+    def _feasible_cap(self) -> Optional[int]:
+        if self._model_mesh is None:
+            return None
+        return MAX_CLIQUE_STATES * int(self._model_mesh.shape[MODEL_AXIS])
+
+    def _replica(self, device) -> "Engine":
+        """This engine's twin on ``device`` (same plan, dtype, potentials,
+        model and sequence sharding), built once."""
+        key = str(device)
+        eng = self._replicas.get(key)
+        if eng is None:
+            eng = Engine(self.plan, self.semiring, device=device,
+                         dtype=self.dtype)
+            eng._tp_notes = self._tp_notes
+            if self._model_mesh is not None:
+                eng.shard_model(self._model_mesh, self._tp_min_states,
+                                self._tp_shard_batch)
+            if self._seq_mesh is not None:
+                eng.shard_sequence(self._seq_mesh, self._seq_axis,
+                                   self._seq_min_len)
+            eng.set_clique_potentials(self._require_pots_np())
+            self._replicas[key] = eng
+        return eng
+
+    def _row_split(self, mask_batch):
+        """(devices, row blocks of ``mask_batch``) along the batch mesh
+        axis: a dict or list of [B, size_v] masks cut into contiguous row
+        blocks, one per device (fewer when B is smaller)."""
+        mesh, (axis, _) = self._mask_sharding.mesh, self._mask_sharding.spec
+        devs = mesh.local_devices(axis)
+        items = list(mask_batch.values()) if isinstance(mask_batch, dict) \
+            else list(mask_batch)
+        if not items:
+            return devs[:1], [mask_batch]
+        blocks = []
+        for rows in row_blocks(int(items[0].shape[0]), len(devs)):
+            if isinstance(mask_batch, dict):
+                blocks.append({k: v[rows] for k, v in mask_batch.items()})
+            else:
+                blocks.append([m[rows] for m in mask_batch])
+        return devs[:len(blocks)], blocks
+
+    def _rows_sharded(self, method: str, mask_batch, **kwargs):
+        """``method`` of each device's replica on its rows; the results
+        concatenated along the rows on the first device."""
+        devs, blocks = self._row_split(mask_batch)
+        outs = [getattr(self._replica(d), method)(mask_batch=m, **kwargs)
+                for d, m in zip(devs, blocks)]
+        return cat_rows(outs, devs[0])
+
+
+def cat_rows(parts, device):
+    """Concatenate per-device results along their rows on ``device``: a
+    tensor along axis 0, a ``StackedPosteriors`` along its batch axis, a
+    tuple entry by entry, any other sequence (per-variable posteriors)
+    variable by variable."""
+    from .scan_executor import StackedPosteriors
+
+    first = parts[0]
+    if isinstance(first, torch.Tensor):
+        return torch.cat([p.to(device) for p in parts])
+    if isinstance(first, StackedPosteriors):
+        return StackedPosteriors(
+            torch.cat([p.stacked.to(device) for p in parts], dim=1),
+            first.var_order)
+    if isinstance(first, tuple):
+        return tuple(cat_rows([p[k] for p in parts], device)
+                     for k in range(len(first)))
+    return [cat_rows([p[v] for p in parts], device) for v in range(len(first))]

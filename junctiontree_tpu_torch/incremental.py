@@ -27,7 +27,7 @@ from typing import Dict, Hashable, List, Optional, Sequence, Tuple
 import torch
 
 from .executor import _PROG_TINY as _TINY
-from .executor import BATCH, clique_mask_vars, make_contract
+from .executor import BATCH, cat_rows, clique_mask_vars, make_contract
 from .ops.semirings import Semiring
 from .schedule import Plan
 
@@ -242,6 +242,10 @@ class IncrementalSession:
                 "incremental sessions require the sum_product semiring "
                 "(rescaled linear messages)"
             )
+        if engine._model_mesh is not None:
+            raise ValueError(
+                "incremental sessions do not support model-sharded engines"
+            )
         self.engine = engine
         self.plan = engine.plan
         self._pots = engine._require_pots()
@@ -308,4 +312,32 @@ class IncrementalSession:
         # call and double the session's peak memory on wide separators
         self._ups = self._offs = None
         self._ups, self._offs = self._collect(self._pots, masks)
+        return self
+
+
+class RowShardedSession:
+    """The session of a ``shard_batch`` engine: one
+    :class:`IncrementalSession` per device over its block of rows, with the
+    same ``query`` and ``rebase``; results are concatenated along the rows
+    on ``device``."""
+
+    def __init__(self, sessions: Sequence[IncrementalSession], device):
+        self.sessions = list(sessions)
+        self.device = device
+        self._rows, lo = [], 0
+        for sess in self.sessions:
+            self._rows.append(slice(lo, lo + sess._B))
+            lo += sess._B
+
+    def _cut(self, updates, rows):
+        return {k: v[rows] for k, v in updates.items()}
+
+    def query(self, updates: Dict[Hashable, torch.Tensor], query_vars):
+        return cat_rows([sess.query(self._cut(updates, rows), query_vars)
+                         for sess, rows in zip(self.sessions, self._rows)],
+                        self.device)
+
+    def rebase(self, updates: Dict[Hashable, torch.Tensor]) -> "RowShardedSession":
+        for sess, rows in zip(self.sessions, self._rows):
+            sess.rebase(self._cut(updates, rows))
         return self

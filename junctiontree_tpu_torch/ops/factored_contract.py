@@ -342,6 +342,17 @@ factored_masked_contract.launches_bf16 = 0
 factored_masked_contract.launches_backward = 0
 
 
+def kernel_or_plain(
+    pot: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor
+) -> torch.Tensor:
+    """The contraction as the serving path runs it: the kernel for float32
+    and bfloat16 on the card; the plain version for other dtypes there
+    (float64 references), and, through the wrapper, off the card."""
+    if pot.is_cuda and pot.dtype not in (torch.float32, torch.bfloat16):
+        return reference_factored_contract(pot, w1, w2)
+    return factored_masked_contract(pot, w1, w2)
+
+
 def build_weight_groups(
     masks: Sequence[torch.Tensor],
 ) -> Tuple[torch.Tensor, torch.Tensor, List[int], List[int]]:
@@ -461,11 +472,17 @@ def big_clique_sep_message(
     sep_vars: Sequence[int],
     *,
     msgs: Sequence[Tuple[Sequence[int], torch.Tensor]] = (),
+    contract_fn=None,
 ) -> torch.Tensor:
     """Collect/distribute message from a (large) clique to its separator
     under batched evidence masks and batched child messages.
 
-    pot: unbatched clique potential, axes = clique_vars order.
+    pot: unbatched clique potential, axes = clique_vars order; or, with
+    ``contract_fn``, an object with ``shape``, ``dtype`` and
+    ``kernel_layout(r1_axes, r2_axes, c_axes, r2_first)`` that hands
+    ``contract_fn`` the potential in the kernel's layout
+    (``parallel.tp.ShardedPotential``: blocks of R1 on the model devices,
+    never the whole potential on one).
     masks: {var id: [B, size_v]} for observed vars (subset of clique_vars).
     msgs: batched multi-variable operands (child separator messages), each
     (vars, tensor [B, *shape]); every message's vars must lie entirely inside
@@ -473,20 +490,21 @@ def big_clique_sep_message(
     can't be factored — callers use the einsum path instead).
     Masks/messages scoped inside sep_vars are applied post-contraction.
 
-    f32 and bf16 tensors on the card run the CUDA kernel; every other
-    dtype, and all CPU tensors, run the plain version.  Each call adds one
-    to ``big_clique_sep_message.calls``.  Returns [B, *sep_shape]."""
+    ``contract_fn(p3 [R1, R2, C], w1 [B, R1], w2 [B, R2]) -> [B, C]``
+    replaces the one kernel call (``parallel.tp.tp_contract_fn`` shards it
+    over a mesh's model axis).  Otherwise f32 and bf16 tensors on the card
+    run the CUDA kernel; every other dtype, and all CPU tensors, run the
+    plain version.  Each call adds one to ``big_clique_sep_message.calls``.
+    Returns [B, *sep_shape]."""
     cset = list(clique_vars)
     sset = list(sep_vars)
     rest = [v for v in cset if v not in sset]
     rest_set = set(rest)
     sep_set = set(sset)
-    perm = [cset.index(v) for v in rest + sset]
-    p = pot.permute(perm)
-    R = int(np.prod([p.shape[i] for i in range(len(rest))])) if rest else 1
-    C = int(np.prod(p.shape[len(rest):])) if sset else 1
-    sep_shape = tuple(p.shape[len(rest):])
     sizes = {v: int(pot.shape[cset.index(v)]) for v in cset}
+    R = int(np.prod([sizes[v] for v in rest])) if rest else 1
+    C = int(np.prod([sizes[v] for v in sset])) if sset else 1
+    sep_shape = tuple(sizes[v] for v in sset)
 
     # split batched operands into rest-scoped items (folded into the kernel
     # weight groups) and sep-scoped items (applied to the output)
@@ -509,9 +527,10 @@ def big_clique_sep_message(
     if not (items or sep_items):
         raise ValueError("need at least one batched operand")
     B = int((items + sep_items)[0][1].shape[0])
+    device = (items + sep_items)[0][1].device
 
     def ones(n):
-        return torch.ones((B, n), dtype=pot.dtype, device=pot.device)
+        return torch.ones((B, n), dtype=pot.dtype, device=device)
 
     if items:
         g1_items, g1_vars, g2_items, g2_vars = _group_items(items, sizes)
@@ -537,23 +556,20 @@ def big_clique_sep_message(
     # the one copy of the permuted potential lands in the layout the kernel
     # reads: [R2, R1, C] rows for a small separator, else [R1, R2, C]
     r2_first = tiles_by_n(C)
-    order = g2_axes + g1_vars if r2_first else g1_vars + g2_axes
-    p = p.permute(
-        [rest.index(v) for v in order] + list(range(len(rest), p.dim()))
-    )
-    p3 = (
-        p.reshape(R2, R1, C).permute(1, 0, 2) if r2_first
-        else p.reshape(R1, R2, C)
-    )
+    r1_axes, r2_axes, c_axes = (
+        [cset.index(v) for v in vs] for vs in (g1_vars, g2_axes, sset))
+    if isinstance(pot, torch.Tensor):
+        if r2_first:
+            p3 = pot.permute(r2_axes + r1_axes + c_axes).reshape(
+                R2, R1, C).permute(1, 0, 2)
+        else:
+            p3 = pot.permute(r1_axes + r2_axes + c_axes).reshape(R1, R2, C)
+    else:
+        p3 = pot.kernel_layout(r1_axes, r2_axes, c_axes, r2_first)
 
     big_clique_sep_message.calls += 1
-    if p3.is_cuda and p3.dtype not in (torch.float32, torch.bfloat16):
-        # the kernel takes f32 and bf16; other dtypes (f64 references) on
-        # the card take the plain version
-        out = reference_factored_contract(p3, w1, w2)
-    else:
-        out = factored_masked_contract(p3, w1, w2)
-    out = out.reshape((B,) + sep_shape)
+    contract = kernel_or_plain if contract_fn is None else contract_fn
+    out = contract(p3, w1, w2).reshape((B,) + sep_shape)
 
     # apply separator-scoped masks/messages elementwise on the output
     for vs, t in sep_items:

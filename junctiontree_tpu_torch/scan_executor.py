@@ -138,29 +138,36 @@ def _rescaled_step(x, mat, out=None, s_out=None):
     return torch.div(y, s, out=out), s
 
 
+def _stack_masks(layout: ChainLayout, masks, dtype, device) -> torch.Tensor:
+    """The [m+1, B, K] chain-order mask stack of a dict var_id -> [B, K]
+    mask (unobserved positions all ones), or a prestacked one as given."""
+    if not isinstance(masks, dict):
+        return masks.to(dtype=dtype, device=device)
+    m, K = len(layout.clique_order), layout.card
+    chain_pos = {v: k for k, v in enumerate(layout.var_order)}
+    B = next(iter(masks.values())).shape[0] if masks else 1
+    # ones everywhere, the (few) observed variables written by index
+    M = torch.ones((m + 1, B, K), dtype=dtype, device=device)
+    if masks:
+        at = torch.tensor(
+            [chain_pos[v] for v in masks], dtype=torch.long, device=device
+        )
+        M[at] = torch.stack(
+            [mk.to(dtype=dtype, device=device) for mk in masks.values()]
+        )
+    return M
+
+
 def _chain_forward(layout: ChainLayout, A: torch.Tensor, masks):
     """Forward pass of the chain program: ``(M, F_all, logZ, functional)``
     with the stacked masks ``M`` and forward messages ``F_all``, both
     [m+1, B, K].  When ``A`` requires a gradient (and gradients are on) every
     step is functional and the stacks are ``torch.stack`` of the steps; else
     the steps write into preallocated stacks in place."""
-    m, K = len(layout.clique_order), layout.card
+    m = len(layout.clique_order)
     dtype, device = A.dtype, A.device
-    if isinstance(masks, dict):
-        chain_pos = {v: k for k, v in enumerate(layout.var_order)}
-        B = next(iter(masks.values())).shape[0] if masks else 1
-        # ones everywhere, the (few) observed variables written by index
-        M = torch.ones((m + 1, B, K), dtype=dtype, device=device)
-        if masks:
-            at = torch.tensor(
-                [chain_pos[v] for v in masks], dtype=torch.long, device=device
-            )
-            M[at] = torch.stack(
-                [mk.to(dtype=dtype, device=device) for mk in masks.values()]
-            )
-    else:
-        M = masks.to(dtype=dtype, device=device)
-        B = M.shape[1]
+    M = _stack_masks(layout, masks, dtype, device)
+    B, K = M.shape[1], M.shape[2]
     functional = A.requires_grad and torch.is_grad_enabled()
     F_all = scale = None
     F_rows = s_rows = [None] * (m + 1)
@@ -236,6 +243,101 @@ def chain_posterior_program(plan: Plan, layout: ChainLayout):
         return post.div_(post.sum(dim=-1, keepdim=True).clamp_min(_TINY)), logz
 
     return fn
+
+
+def _scan_products(X: torch.Tensor, S: torch.Tensor, reverse: bool):
+    """Inclusive scan of max-normalized matrix products over axis 0 of
+    ``X`` [n, B, K, K] with log offsets ``S`` [n, B] (Hillis-Steele: one
+    batched product per level, ceil(log2 n) levels).  Prefixes
+    ``X[k] <- X[0] ... X[k]``, or with ``reverse`` suffixes
+    ``X[k] <- X[k] ... X[n-1]``: either way the earlier step stays the left
+    factor.  Each product is divided by its maximum per row of the batch
+    (floored at 1e-38) and the log of that maximum added to the offsets."""
+    n, d = X.shape[0], 1
+    while d < n:
+        prod = torch.matmul(X[:-d], X[d:])   # X[k] covers d steps from k
+        c = prod.amax(dim=(-2, -1)).clamp_min(_TINY)
+        prod = prod / c[..., None, None]
+        s = S[:-d] + S[d:] + torch.log(c)
+        if reverse:
+            X, S = torch.cat([prod, X[n - d:]]), torch.cat([s, S[n - d:]])
+        else:
+            X, S = torch.cat([X[:d], prod]), torch.cat([S[:d], s])
+        d *= 2
+    return X, S
+
+
+def chain_posterior_parallel_program(plan: Plan, layout: ChainLayout):
+    """Build ``fn(A, masks) -> (stacked posteriors [m+1, B, K], logZ [B])``:
+    the chain's forward and backward recurrences as log-depth scans.
+
+    Same contract as :func:`chain_posterior_program`, except that ``A`` may
+    also be a list of consecutive step blocks of the [m, K, K] transitions,
+    each on its own device (``Engine.shard_sequence``).  The forward
+    messages are F_{k+1} = 1^T T_0 ... T_k with T_k = diag(M_k) A_k, the
+    backward ones G_k = T'_k ... T'_{m-1} 1 with T'_k = A_k diag(M_{k+1});
+    every product of the scans is max-normalized with its log offset kept,
+    so long chains stay in range.  Each block scans its own steps where it
+    lies; then the blocks' boundary messages are carried across in order
+    (block i's forward carry is F at its first step, its backward carry G
+    after its last), one [B, K] x [K, K] product per step of each block.
+    This is what partitioning one scan over the devices amounts to.
+
+    K^3 work per step against the sequential program's K^2, in about
+    2 ceil(log2 m) levels of batched products instead of a loop of m steps;
+    ``posterior_batch`` takes it only on an engine with ``shard_sequence``.
+    Impossible evidence gives zero posteriors and logZ = -inf."""
+
+    def fn(A, masks):
+        with pinned_precision():
+            return _parallel_posteriors(layout, A, masks)
+
+    return fn
+
+
+def _parallel_posteriors(layout: ChainLayout, A, masks):
+    blocks = list(A) if isinstance(A, (list, tuple)) else [A]
+    dev0, dtype = blocks[0].device, blocks[0].dtype
+    M = _stack_masks(layout, masks, dtype, dev0)    # [m+1, B, K]
+    B, K = M.shape[1], M.shape[2]
+    scans, lo = [], 0
+    for blk in blocks:                               # independent per block
+        hi = lo + blk.shape[0]
+        Mb = M[lo:hi + 1].to(blk.device, non_blocking=True)
+        zeros = torch.zeros((hi - lo, B), dtype=dtype, device=blk.device)
+        fwd = _scan_products(Mb[:-1, :, :, None] * blk[:, None], zeros, False)
+        bwd = _scan_products(blk[:, None] * Mb[1:, :, None, :], zeros, True)
+        scans.append((fwd, bwd[0]))
+        lo = hi
+    ones = torch.ones((B, K), dtype=dtype, device=dev0)
+    zero = torch.zeros((B,), dtype=dtype, device=dev0)
+    # forward: carry F and its offset from each block's last step onward
+    F, Foff = [ones[None]], [zero[None]]
+    e, eoff = ones, zero
+    for blk, ((L, S), _) in zip(blocks, scans):
+        d = blk.device
+        f = torch.matmul(e.to(d)[:, None, :], L)[:, :, 0]     # [nb, B, K]
+        c = f.amax(dim=-1).clamp_min(_TINY)
+        f, off = f / c[..., None], S + eoff.to(d) + torch.log(c)
+        e, eoff = f[-1].to(dev0), off[-1].to(dev0)
+        F.append(f.to(dev0, non_blocking=True))
+        Foff.append(off.to(dev0, non_blocking=True))
+    # backward: G scales cancel in the posteriors, so no offsets
+    G, g = [ones[None]], ones
+    for blk, (_, Lb) in zip(reversed(blocks), reversed(scans)):
+        gb = torch.matmul(Lb, g.to(blk.device)[:, :, None])[..., 0]
+        gb = gb / gb.amax(dim=-1, keepdim=True).clamp_min(_TINY)
+        g = gb[0].to(dev0)
+        G.insert(0, gb.to(dev0, non_blocking=True))
+    F, Foff, G = torch.cat(F), torch.cat(Foff), torch.cat(G)
+    post = F * M * G
+    post = post / post.sum(dim=-1, keepdim=True).clamp_min(_TINY)
+    zfin = (F[-1] * M[-1]).sum(dim=-1)
+    logz = torch.where(
+        zfin > 0, torch.log(zfin.clamp_min(_TINY)),
+        torch.full_like(zfin, -float("inf")),
+    ) + Foff[-1]
+    return post, logz
 
 
 def _stack_log_masks(layout: ChainLayout, logmasks, dtype, device):
@@ -357,6 +459,7 @@ class StackedPosteriors:
 
     def __init__(self, stacked: torch.Tensor, var_order: Sequence[int]):
         self._stacked = stacked
+        self.var_order = list(var_order)
         self._pos: Dict[int, int] = {v: k for k, v in enumerate(var_order)}
 
     @property

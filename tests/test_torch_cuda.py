@@ -874,3 +874,112 @@ def test_cli_on_cuda_matches_cpu(cuda, tmp_path, capsys):
         np.testing.assert_allclose(
             [float(t) for t in out["cuda"][1].split()],
             [float(t) for t in out["cpu"][1].split()], atol=1e-5)
+
+
+def _mesh_devices(n):
+    """n mesh positions over the cards there are: distinct cards where
+    there are n of them, cuda:0 repeated on one card."""
+    return [torch.device("cuda", i % torch.cuda.device_count())
+            for i in range(n)]
+
+
+def _launches_of(fn):
+    before = fc.factored_masked_contract.launches
+    out = fn()
+    torch.cuda.synchronize()
+    return out, fc.factored_masked_contract.launches - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tp_on_one_card_launches_kernel_per_shard(cuda, dtype, monkeypatch):
+    """``shard_model`` over a mesh of 4 card positions: every routed
+    contraction of the hub (2^12 states, thresholds lowered to 2^8) launches
+    the kernel once per model shard, 4 times the unsharded engine's
+    launches, and the results equal the unsharded engine's (f32 1e-5, bf16
+    within 2e-2 of it) with no gathered contraction."""
+    from junctiontree_tpu_torch.parallel import make_mesh
+
+    monkeypatch.setattr(DEFAULT, "big_clique_min_states", 1 << 8)
+    factors, sizes, values = _hub_model()
+    plan = jt.compile_plan(factors, sizes)
+    evs = jt.random_evidence_batch(plan, 256, ["t0", "t1", "h5", "h6"], seed=2)
+    masks = jt.batch_masks_sparse(plan, evs)
+    eng0 = jt.Engine(plan, device=cuda, dtype=dtype).set_potentials(values)
+    (post0, logz0), n0 = _launches_of(lambda: eng0.posterior_batch(masks))
+    for n_batch, shard_batch in ((1, False), (2, True)):
+        mesh = make_mesh(n_batch, 4 // n_batch, devices=_mesh_devices(4))
+        eng = jt.Engine(plan, device=cuda, dtype=dtype)
+        eng.shard_model(mesh, min_states=1 << 8, shard_batch=shard_batch)
+        eng.set_potentials(values)
+        (post, logz), n = _launches_of(lambda: eng.posterior_batch(masks))
+        assert n0 > 0 and n == 4 * n0
+        assert eng.describe()["tp_fallbacks"] == []
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        np.testing.assert_allclose(logz.cpu(), logz0.cpu(), rtol=tol, atol=tol)
+        for p, p0 in zip(post, post0):
+            np.testing.assert_allclose(p.cpu(), p0.cpu(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_parallel_surface_on_the_cards(cuda):
+    """The log-depth chain program over 4 card positions against the
+    sequential program (f32, rtol 1e-4), ``shard_batch`` over 2 with
+    ``chunk=`` against the unsharded engine, and the forest engine and loopy
+    BP over them against one engine."""
+    from junctiontree_tpu_torch.models import chain_bn_model, grid_mrf_model
+    from junctiontree_tpu_torch.parallel import make_mesh
+
+    factors, sizes, values = chain_bn_model(300, seed=1)
+    plan = jt.compile_plan(factors, sizes)
+    evs = jt.random_evidence_batch(plan, 64, [f"x{i}" for i in range(0, 300, 30)],
+                                   seed=3)
+    masks = jt.batch_masks_sparse(plan, evs)
+    seq = jt.Engine(plan, device=cuda).set_potentials(values)
+    par = jt.Engine(plan, device=cuda).set_potentials(values).shard_sequence(
+        make_mesh(4, devices=_mesh_devices(4)), min_len=16)
+    post0, logz0 = seq.posterior_batch(masks)
+    post, logz = par.posterior_batch(masks)
+    assert ("chain_parallel",) in par._programs and len(par._chain_A) == 4
+    np.testing.assert_allclose(logz.cpu(), logz0.cpu(), rtol=1e-4)
+    np.testing.assert_allclose(post.stacked.cpu(), post0.stacked.cpu(),
+                               rtol=1e-4, atol=1e-6)
+
+    factors, sizes, values = grid_mrf_model(4, 4, seed=0)
+    plan = jt.compile_plan(factors, sizes)
+    masks = jt.batch_masks_sparse(plan, jt.random_evidence_batch(
+        plan, 100, ["g0_0", "g3_3"], seed=1))
+    eng0 = jt.Engine(plan, device=cuda).set_potentials(values)
+    eng = jt.Engine(plan, device=cuda).set_potentials(values).shard_batch(
+        make_mesh(2, devices=_mesh_devices(2)))
+    (p0, l0), (p1, l1) = eng0.posterior_batch(masks), eng.posterior_batch(
+        masks, chunk=16)
+    np.testing.assert_allclose(l1.cpu(), l0.cpu(), rtol=1e-5)
+    for a, b in zip(p1, p0):
+        np.testing.assert_allclose(a.cpu(), b.cpu(), rtol=1e-5, atol=1e-7)
+
+    from junctiontree_tpu_torch.parallel.forest import ForestEngine
+
+    factors2 = factors + [["h", "i"], ["z"]]
+    sizes2 = dict(sizes, h=3, i=2, z=4)
+    rng = np.random.default_rng(0)
+    values2 = list(values) + [rng.random((3, 2)) + 0.1, rng.random(4) + 0.1]
+    evs = [{"g0_0": 1, "i": 0}, {"z": 2}, {}]
+    fpost, flogz = ForestEngine(factors2, sizes2, devices=_mesh_devices(3)) \
+        .set_potentials(values2).posterior_batch(evs)
+    plan2 = jt.compile_plan(factors2, sizes2)
+    mpost, mlogz = jt.Engine(plan2, device=cuda).set_potentials(values2) \
+        .posterior_batch(jt.batch_masks_sparse(plan2, evs))
+    np.testing.assert_allclose(flogz.cpu(), mlogz.cpu(), rtol=1e-5)
+    for v in sizes2:
+        np.testing.assert_allclose(fpost[v].cpu(),
+                                   mpost[plan2.table.id_of(v)].cpu(),
+                                   rtol=1e-5, atol=1e-6)
+    lmasks = {k: v for k, v in masks.items()}
+    one = jt.LoopyEngine(factors, sizes, values, device=cuda, tol=1e-5)
+    split = jt.LoopyEngine(factors, sizes, values, tol=1e-5,
+                           mesh=make_mesh(4, devices=_mesh_devices(4)))
+    q1, z1, i1 = one.posterior_batch(lmasks)
+    q2, z2, i2 = split.posterior_batch(lmasks)
+    assert i1["iters"] == i2["iters"]
+    np.testing.assert_allclose(z2.cpu(), z1.cpu(), atol=1e-4)

@@ -130,6 +130,17 @@ margs, z = eng.query_batch_vmap(jt.batch_masks(tree.plan, [{"wet_grass": 1}]))
 assert abs(float(z[0]) - p_wet) < 1e-6
 assert isinstance(autotune.report(), dict)
 assert jt.apply_evidence([np.ones((2, 2))], [["rain", "wet_grass"]], {"rain": 1})[0].shape == (1, 2)
+# the parallel surface: data and tensor parallelism over a CPU mesh
+from junctiontree_tpu_torch.parallel import make_mesh
+wet2 = jt.batch_masks_sparse(tree.plan, [{"wet_grass": 1}, {"wet_grass": 1}])
+sb = jt.Engine(tree.plan, device="cpu").set_potentials(values)
+spost, _ = sb.shard_batch(make_mesh(devices=["cpu"] * 2)).posterior_batch(wet2)
+assert round(float(spost[rain][1, 1]), 4) == 0.7079
+sm = jt.Engine(tree.plan, device="cpu").shard_model(
+    make_mesh(1, 2, devices=["cpu"] * 2), min_states=2).set_potentials(values)
+mpost, _ = sm.posterior_batch(wet2)
+assert round(float(mpost[rain][0, 1]), 4) == 0.7079
+assert sm.describe()["tp_fallbacks"] == []
 assert not any(m.startswith("junctiontree_tpu.") or m == "junctiontree_tpu"
                for m in sys.modules)
 print("ok")
@@ -150,8 +161,8 @@ def test_imports_and_serves_without_jax():
 def test_no_module_of_the_port_names_jax():
     """No source file of the package, nor ``chip_smoke.py``, imports ``jax``
     or the JAX package (the modules of learning and the solvers, the CLI,
-    the compatibility shims, the native compiler and measured routing
-    included)."""
+    the compatibility shims, the native compiler, measured routing and the
+    parallel package included)."""
     import re
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -164,7 +175,9 @@ def test_no_module_of_the_port_names_jax():
                 "mmap.py", "cutset.py", "approx.py", "utils/uai.py",
                 "utils/bif.py", "__main__.py", "native/__init__.py",
                 "construction.py", "computation.py", "sum_product.py",
-                "ops/autotune.py", "config.py"):
+                "ops/autotune.py", "config.py", "parallel/mesh.py",
+                "parallel/batch.py", "parallel/tp.py", "parallel/forest.py",
+                "parallel/multihost.py"):
         assert mod in rel, mod
     pat = re.compile(
         r"^\s*(import|from)\s+(jax|jaxlib|optax|junctiontree_tpu)(\.|\s|$)", re.M)
