@@ -2,12 +2,17 @@
 
     python3 chip_smoke.py [--profile]
 
-Builds the CUDA kernel from the sources in this checkout, holds it against
-its plain PyTorch version at the shapes the serving path gives it (with its
-time beside the plain version's, one PyTorch ``einsum`` call's and the
-card's bound) and at edge shapes, then serves evidence batches through the
-public entry points (``create_junction_tree(...).engine(...)
-.set_potentials(...).posterior_batch(masks)``), one phase per path.
+Builds the CUDA kernel from the sources in this checkout (and checks in
+its SASS that every bfloat16 kernel runs ``wgmma`` fed by the Tensor Memory
+Accelerator), holds it against its plain PyTorch version at the shapes the
+serving path gives it and at one model shard of each (with its time beside
+the plain version's, one PyTorch ``einsum`` call's, the two library
+products of ``library_factored_contract`` and the card's bound) and at edge
+shapes, then serves evidence batches through the public entry points
+(``create_junction_tree(...).engine(...).set_potentials(...)
+.posterior_batch(masks)``), one phase per path.  No serving path may copy a
+bfloat16 operand into an aligned buffer for the Tensor Memory Accelerator
+(phase ``tma_copies``).
 
 Right after the kernel's phases come the surface around the engine:
 
@@ -1963,6 +1968,13 @@ def _tp_contract_times(dev, mesh, shapes, device_ms):
                                                   shard_batch=False)),
             one_shard_launch_ms=device_ms(
                 lambda: fc.factored_masked_contract(shard, w1[:, :R1 // 4], w2)),
+            # the library on the same shard's own operands
+            one_shard_library_ms=device_ms(
+                lambda: torch.einsum("rsc,br,bs->bc", shard, w1[:, :R1 // 4],
+                                     w2)),
+            one_shard_library_factored_contract_ms=device_ms(
+                lambda: fc.library_factored_contract(shard, w1[:, :R1 // 4],
+                                                     w2)),
             unsharded_launch_ms=device_ms(
                 lambda: fc.factored_masked_contract(whole, w1, w2)),
             plain_ms=device_ms(lambda: fc.reference_factored_contract(pot, w1, w2)),
@@ -2314,14 +2326,26 @@ def run() -> int:
     require(all("0 bytes spill stores, 0 bytes spill loads" in ln
                 for ln in regs if "spill" in ln),
             f"ptxas reports register spills: {regs}")
+    sass = cuda_build.sass_op_counts()
     mma = cuda_build.tensor_core_op_counts()
     require(all(n == 0 for k, n in mma.items() if not k.startswith("bf16"))
             and all(n > 0 for k, n in mma.items() if k.startswith("bf16")),
             f"tensor-core operations outside the bf16 kernels: {mma}")
+    # the bf16 kernels run wgmma (HGMMA) fed by the Tensor Memory
+    # Accelerator (UTMALDG), all three epilogues of them
+    require({"bf16_by_c", "bf16_fold", "bf16_smem"} <= set(sass) and all(
+        ops["HGMMA"] > 0 and ops["UTMALDG"] > 0
+        for k, ops in sass.items() if k.startswith("bf16")),
+        f"a bf16 kernel without HGMMA or UTMALDG: {sass}")
+    # clusters of 1..8 bf16 blocks the card holds at once: what sets the
+    # bf16 kernel's split of r2 (launch_config)
+    slots = {f"bn={bn}, by_n={by_n}": list(fc._cluster_slots(dev, bn, by_n))
+             for bn, by_n in ((64, False), (64, True), (128, True))}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "nvcc_seconds": round(cuda_build.build_seconds, 3),
           "library": cuda_build.library_path(), "ptxas": regs[:16],
-          "tensor_core_op_counts": mma})
+          "tensor_core_op_counts": mma, "sass_op_counts": sass,
+          "bf16_cluster_slots": slots})
 
     # -- 3. kernel against the plain version ---------------------------------
     factors, sizes, values, names = big_clique_model()
@@ -2397,14 +2421,22 @@ def run() -> int:
             bf16 = dtype == torch.bfloat16
             # an edge shape also takes the wrapper's one-copy path
             pot = rand_pot(R1, R2, C, dtype, as_handed=serving)
-            w1 = torch.rand((Bk, R1), generator=g, device=dev).to(dtype)
+            # w1 in float32 on the serving paths, as the route hands it
+            # (bf16 storage rounds only pot and w2); the einsum below takes
+            # one dtype, so it gets its own copy
+            w1 = torch.rand((Bk, R1), generator=g, device=dev)
+            w1 = w1 if serving else w1.to(dtype)
+            w1_lib = w1.to(dtype)
             w2 = torch.rand((Bk, R2), generator=g, device=dev).to(dtype)
             got = fc.factored_masked_contract(pot, w1, w2)
             want = fc.reference_factored_contract(pot, w1, w2)
             torch.cuda.synchronize()
             abs_err = (got - want).abs().max().item()
             rel = abs_err / want.abs().max().item()
-            tol = 2e-2 if bf16 else 1e-5
+            # bf16 inputs: f32 sums of exact products, within 2e-6 on the
+            # serving path and 2e-2 (bf16's own rounding of f32 inputs)
+            # elsewhere
+            tol = (2e-6 if serving else 2e-2) if bf16 else 1e-5
             require(rel <= tol, f"kernel disagrees at {shape} {dtype}: {rel}")
             line = {"phase": "kernel_vs_plain", "R1": R1, "R2": R2, "C": C,
                     "B": Bk, "dtype": str(dtype).split(".")[-1],
@@ -2418,9 +2450,11 @@ def run() -> int:
                 # the one PyTorch call for the same function (TF32 is off);
                 # a yardstick only: the package never calls it
                 lib = device_ms(
-                    lambda: torch.einsum("rsc,br,bs->bc", pot, w1, w2))
+                    lambda: torch.einsum("rsc,br,bs->bc", pot, w1_lib, w2))
                 bound, by = kernel_bound_ms(R1, R2, C, Bk, bf16)
                 line.update(
+                    library_factored_contract_ms=device_ms(
+                        lambda: fc.library_factored_contract(pot, w1, w2)),
                     ms=k, plain_ms=p, library_ms=lib, bound_ms=bound,
                     bound_by=by, share_of_bound=bound / k,
                     host_us_per_call=host_us(
@@ -2435,6 +2469,46 @@ def run() -> int:
                     tot["bound_ops_ms"] += bound * n * (by == "operations")
                     tot["max_abs_err"] = max(tot["max_abs_err"], abs_err)
             emit(line)
+
+    # one model shard of each serving shape (Engine.shard_model over 4 model
+    # shards: R1 / 4), timed as single launches beside the library on the
+    # shard's own operands, in the layout the tensor-parallel route hands
+    # the kernel
+    for R1, R2, C, Bk in sorted({(R1 // 4, R2, C, Bk)
+                                 for R1, R2, C, Bk in main_shapes}):
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype == torch.bfloat16
+            pot = rand_pot(R1, R2, C, dtype)
+            w1 = torch.rand((Bk, R1), generator=g, device=dev)
+            w1_lib = w1.to(dtype)
+            w2 = torch.rand((Bk, R2), generator=g, device=dev).to(dtype)
+            got = fc.factored_masked_contract(pot, w1, w2)
+            want = fc.reference_factored_contract(pot, w1, w2)
+            torch.cuda.synchronize()
+            abs_err = (got - want).abs().max().item()
+            rel = abs_err / want.abs().max().item()
+            tol = 2e-6 if bf16 else 1e-5
+            require(rel <= tol, f"kernel disagrees at shard {R1, R2, C, Bk} "
+                                f"{dtype}: {rel}")
+            require(torch.equal(got, fc.factored_masked_contract(pot, w1, w2)),
+                    f"two runs differ at shard {R1, R2, C, Bk} {dtype}")
+            cfg = fc.launch_config(Bk, R1, R2, C, torch.cuda.get_device_properties(
+                dev).multi_processor_count, bf16)
+            k = device_ms(lambda: fc.factored_masked_contract(pot, w1, w2))
+            bound, by = kernel_bound_ms(R1, R2, C, Bk, bf16)
+            emit({"phase": "kernel_vs_plain", "shard_of": [R1 * 4, R2, C, Bk],
+                  "R1": R1, "R2": R2, "C": C, "B": Bk,
+                  "dtype": str(dtype).split(".")[-1], "max_abs_err": abs_err,
+                  "rel_err": rel, "tol": tol, "column_tile": cfg["bn"],
+                  "row_tile": cfg["bm"], "ms": k,
+                  "plain_ms": device_ms(
+                      lambda: fc.reference_factored_contract(pot, w1, w2)),
+                  "library_ms": device_ms(
+                      lambda: torch.einsum("rsc,br,bs->bc", pot, w1_lib, w2)),
+                  "library_factored_contract_ms": device_ms(
+                      lambda: fc.library_factored_contract(pot, w1, w2)),
+                  "bound_ms": bound, "bound_by": by,
+                  "share_of_bound": bound / k})
 
     # the serving floor 1e-38 is subnormal in f32 and bf16: it must not be
     # flushed, and exact zeros must stay exact zeros
@@ -2455,6 +2529,10 @@ def run() -> int:
         emit({"phase": "kernel_subnormals", "dtype": str(dtype).split(".")[-1],
               "row_of_1e-38_rel_err": worst, "row_sum": want[0, 0].item(),
               "zero_rows_exact": True})
+
+    # every path from here on is a serving path: no bf16 operand may need a
+    # copy into an aligned buffer before its tensor maps
+    fc.factored_masked_contract.padded = 0
 
     # -- 3b. the measurement, precision, the native compiler, the CLI, memory
     big = dict(tree=tree, factors=factors, values=values, masks=masks,
@@ -2574,6 +2652,11 @@ def run() -> int:
 
     # -- 9. the parallel surface (meshes of cuda:0) ----------------------------
     tp_launches, tp_tot = phase_parallel(dev, main_shapes, profile, device_ms)
+
+    require(fc.factored_masked_contract.padded == 0,
+            f"{fc.factored_masked_contract.padded} bf16 operands of the serving "
+            "paths were copied into an aligned buffer")
+    emit({"phase": "tma_copies", "padded_on_serving_paths": 0})
 
     # -- 10. kernel table, card, result -------------------------------------
     # the kernel once per dtype and path it serves; launches are those of

@@ -94,11 +94,13 @@ def load_library() -> ctypes.CDLL:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.jt_factored_contract.argtypes = [
             p, p, p, p, p, i32, i32, i64, i64, i64, i64,
-            i32, i32, i32, i64, i32, i32, i32, p,
+            i32, i32, i32, i32, i64, i32, i32, i32, i64, i64, p,
         ]
         lib.jt_factored_contract.restype = i32
         lib.jt_error_string.argtypes = [i32]
         lib.jt_error_string.restype = ctypes.c_char_p
+        lib.jt_bf16_max_clusters.argtypes = [i32, i32, i32]
+        lib.jt_bf16_max_clusters.restype = i32
         _lib = lib
         return lib
 
@@ -113,12 +115,20 @@ def build_log() -> str:
         return f.read()
 
 
-def tensor_core_op_counts() -> dict:
-    """Tensor-core operations (``HMMA``, ``HGMMA``, ...) in each compiled
-    kernel of the current library, counted in ``cuobjdump -sass`` and keyed
-    by input type and tiling (``f32_by_n``, ``bf16_by_c``, ...; ``other`` is
-    the fixed-order sum): the float32 kernels must hold none.  {} where the
-    toolkit has no cuobjdump."""
+SASS_OPS = ("HMMA", "HGMMA", "IMMA", "DMMA", "QGMMA", "UTMALDG")
+# the bf16 kernel's epilogue (its enum template argument, as mangled)
+EPI_KINDS = (("EpiE0E", "_by_c"), ("EpiE1E", "_fold"), ("EpiE2E", "_smem"))
+TENSOR_CORE_OPS = SASS_OPS[:5]
+
+
+def sass_op_counts() -> dict:
+    """Instructions of ``SASS_OPS`` (tensor-core products and ``UTMALDG``,
+    the Tensor Memory Accelerator's load) in each compiled kernel of the
+    current library, counted in ``cuobjdump -sass`` and keyed by input type
+    and tiling or epilogue (``f32_by_n``, ``f32_by_c``, ``bf16_by_c``,
+    ``bf16_fold``, ``bf16_smem``; ``other`` is the fixed-order sum):
+    ``{kind: {op: count}}``, summed over the kernels of a kind.  {} where
+    the toolkit has no cuobjdump."""
     nvcc = _nvcc()
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     if not os.path.exists(tool):
@@ -127,14 +137,23 @@ def tensor_core_op_counts() -> dict:
         [tool, "-sass", library_path()], capture_output=True, text=True,
         check=True,
     ).stdout
-    counts = {}
+    counts: dict = {}
     for chunk in sass.split("Function : ")[1:]:
         name = chunk.split("\n", 1)[0].strip()
-        kind = (
-            "bf16" if "__nv_bfloat16" in name else
-            "f32" if "factored_contract_kernelIf" in name else "other"
-        ) + ("_by_n" if "Lb1E" in name else "_by_c" if "Lb0E" in name else "")
-        counts[kind] = sum(
-            chunk.count(op) for op in ("HMMA", "HGMMA", "IMMA", "DMMA", "QGMMA")
-        )
+        if "factored_contract_bf16_kernel" in name:  # template <BN, Epi>
+            kind = "bf16" + next((k for e, k in EPI_KINDS if e in name), "")
+        elif "factored_contract_kernel" in name:     # template <BN, BY_N>
+            kind = "f32" + ("_by_n" if "Lb1E" in name else "_by_c")
+        else:
+            kind = "other"
+        mine = counts.setdefault(kind, dict.fromkeys(SASS_OPS, 0))
+        for op in SASS_OPS:
+            mine[op] += chunk.count(op)
     return counts
+
+
+def tensor_core_op_counts() -> dict:
+    """Tensor-core operations (``HMMA``, ``HGMMA``, ...) in each kind of
+    kernel of :func:`sass_op_counts`: the float32 kernels must hold none."""
+    return {kind: sum(ops[op] for op in TENSOR_CORE_OPS)
+            for kind, ops in sass_op_counts().items()}

@@ -13,8 +13,9 @@ hand-written CUDA kernel ``csrc/factored_contract.cu`` (it replaces the
 Pallas TPU kernel ``factored_masked_contract``,
 ``junctiontree_tpu/ops/pallas_contract.py:181-307``): a tiled product of
 ``w2`` with the potential whose [B, R1, C] result stays in registers and
-shared memory, float32 FMAs for float32 inputs and tensor-core ``mma.sync``
-for bfloat16, with the ``w1`` sum fused behind it.
+shared memory, float32 FMAs for float32 inputs and tensor-core ``wgmma``
+fed by the Tensor Memory Accelerator for bfloat16, with the ``w1`` sum
+fused behind it.
 
 :func:`reference_factored_contract` is the plain PyTorch version.  The
 wrapper :func:`factored_masked_contract` uses it only for tensors that lie
@@ -35,15 +36,17 @@ import torch
 
 from .semirings import SUM_PRODUCT, pinned_precision
 
-# kernel tile constants; they must match csrc/factored_contract.cu
-BM = 128      # batch rows per block
-BN = 64       # columns per block
-NSTAGE = 3    # shared-memory stages of the cp.async ring
-BK_F32, BK_BF16 = 16, 32          # r2 elements per step
-BY_N_MAX_C = BN // 2   # widest separator whose columns are tiled as (r1, c)
-BLOCKS_PER_SM = 2      # blocks resident on an SM (the kernel's launch bounds)
+# kernel constants; they must match csrc/factored_contract.cu
+F32_NT = 128           # float32: threads per block, BM * BN = 64 * F32_NT
+F32_BK, F32_NSTAGE = 16, 3        # r2 elements per step, cp.async stages
+F32_BLOCKS_PER_SM = 2  # the float32 kernel's launch bounds
+BF16_BM, BF16_BK = 128, 64  # bfloat16: rows per block, r2 per stage
+BF16_RING_BYTES = 192 * 1024  # the bf16 block's TMA ring; one block an SM
+BF16_MAX_CLUSTER = 8   # blocks of one cluster (the portable limit)
+BY_N_MAX_C = 32        # widest separator whose columns are tiled as (r1, c)
 MAX_GRID_X = 2**31 - 1
 MAX_SMEM_PER_BLOCK = 232_448
+SMEM_PER_SM = 233_472  # of which the card reserves 1 KB for each block
 
 
 def reference_factored_contract(
@@ -105,47 +108,139 @@ def library_factored_contract(
 
 def tiles_by_n(C: int) -> bool:
     """Which of the kernel's two column tilings a separator of C states
-    takes.  True ("n", C <= 32): the columns are n = (r1, c), at least two
-    r1 to a 64-column tile, and the kernel reads pot as [R2, R1*C] rows.
-    False ("c"): the columns are c, r1 is looped inside the block, and the
-    kernel reads pot as [R1, R2, C]."""
+    takes.  True ("n", C <= 32): the columns are n = (r1, c) and the kernel
+    reads pot as [R2, R1*C] rows.  False ("c"): the columns are c, r1 is
+    looped inside the block, and the kernel reads pot as [R1, R2, C]."""
     return C <= BY_N_MAX_C
 
 
+def f32_smem_bytes(bn: int) -> int:
+    """Shared memory of a float32 block with ``bn`` columns: the cp.async
+    ring of padded w2 [BM, 16 + 4] and pot [16, bn] tiles, reused by the
+    epilogue's [BM, bn + 1] tile of sums."""
+    bm, bk = 64 * F32_NT // bn, F32_BK
+    return max(F32_NSTAGE * (bm * (bk + 4) + bk * bn) * 4, bm * (bn + 1) * 4)
+
+
+def bf16_stages(bn: int) -> int:
+    """Stages of a bfloat16 block's TMA ring: w2 [128, 64] and pot [64, bn]
+    tiles."""
+    return BF16_RING_BYTES // (BF16_BM * BF16_BK * 2 + BF16_BK * bn * 2)
+
+
+def bf16_smem_bytes(bn: int) -> int:
+    """Shared memory of a bfloat16 block with ``bn`` columns: the ring
+    (which the epilogue reuses), its mbarriers and 1 KB to align the ring
+    for the 128-byte swizzle."""
+    st = bf16_stages(bn)
+    return st * (BF16_BM * BF16_BK * 2 + BF16_BK * bn * 2) + 16 * st + 1024
+
+
 def launch_config(
-    B: int, R1: int, R2: int, C: int, n_sm: int, bf16: bool = False
+    B: int, R1: int, R2: int, C: int, n_sm: int, bf16: bool = False,
+    cluster_slots=None,
 ) -> dict:
-    """Grid of the CUDA kernel.  A block owns ``BM`` batch rows by ``BN``
+    """Grid of the CUDA kernel.  A block owns ``bm`` batch rows by ``bn``
     columns (see :func:`tiles_by_n`) and one range of r2, ``k_per_split``
     long, walked in steps of ``bk``.  When the row and column tiles alone
-    cannot fill the card, r2 is split across ``nsplit`` blocks.  Each of the
-    ``nparts`` partial [B, C] sums (one per r2 range, and with the "n" tiling
-    per column tile) is added by a second kernel in a fixed order:
-    deterministic, no atomics.  ``grid`` blocks in all, numbered
-    ``(split * n_n + column tile) * n_b + row tile``; ``smem_bytes`` is the
-    block's shared memory."""
+    cannot fill the card, r2 is split across ``nsplit`` blocks.
+
+    float32: ``bm * bn = 8192`` with ``bn`` the narrowest of 16, 32 and 64
+    that holds the "n" tiling's N = R1*C columns (64 for wider N and for the
+    "c" tiling), and r2 split until every SM holds ``blocks_per_sm`` blocks.
+    Each of the ``nparts`` [B, C] partials (one per r2 range, and with the
+    "n" tiling per column tile) is added by a second kernel in a fixed
+    order.
+
+    bfloat16: ``bm = 128``, ``bn`` 64 or 128 (the "n" tiling takes all of
+    N <= 128 in one tile), and the ``nsplit`` r2 ranges of a tile are the
+    blocks of one cluster, which add their partials in rank order; only
+    several column tiles of the "n" tiling leave ``nparts = n_n`` partials
+    for the second kernel.  ``nsplit`` is the largest cluster size (at most
+    8) at which every tile's cluster is resident at once:
+    ``cluster_slots(bn, by_n)`` gives the clusters of each size 1..8 that
+    the card holds (the wrapper asks the card; by default ``n_sm // size``,
+    as if they packed perfectly).  Block ``split`` of a cluster takes the r2
+    steps ``split, split + nsplit, ...`` (``k_per_split`` is then the step,
+    64), so that the cluster reads neighbouring pieces of the same w2 rows
+    at once.
+
+    ``grid`` blocks in all; ``smem_bytes`` is the block's shared memory."""
     by_n = tiles_by_n(C)
-    bk = BK_BF16 if bf16 else BK_F32
-    n_b = -(-B // BM)
-    n_n = -(-(R1 * C if by_n else C) // BN)
+    ncols = R1 * C if by_n else C
+    if bf16:
+        bm, bk = BF16_BM, BF16_BK
+        bn = 128 if by_n and ncols > 64 else 64
+        smem = bf16_smem_bytes(bn)
+        per_sm = 1
+    else:
+        bn = next((w for w in (16, 32) if by_n and ncols <= w), 64)
+        bm, bk = 64 * F32_NT // bn, F32_BK
+        smem = f32_smem_bytes(bn)
+        per_sm = min(F32_BLOCKS_PER_SM, SMEM_PER_SM // (smem + 1024))
+    n_b = -(-B // bm)
+    n_n = -(-ncols // bn)
     n_k = -(-R2 // bk)
-    want = max(1, min(n_k, BLOCKS_PER_SM * n_sm // (n_b * n_n)))  # one wave
-    steps = -(-n_k // want)
-    nsplit = -(-n_k // steps)
-    # padded w2 [BM, bk] and pot [bk, BN] tiles, as csrc/factored_contract.cu
-    stage = (BM * (bk + 8) + bk * (BN + 8)) * 2 if bf16 \
-        else (BM * (bk + 4) + bk * BN) * 4
+    if bf16:
+        slots = (cluster_slots(bn, by_n) if cluster_slots is not None else
+                 [per_sm * n_sm // size
+                  for size in range(1, BF16_MAX_CLUSTER + 1)])
+        fit = [size for size in range(1, min(BF16_MAX_CLUSTER, n_k) + 1)
+               if slots[size - 1] >= n_b * n_n]
+        # block `split` of a cluster takes the r2 steps split, split +
+        # nsplit, ...: k_per_split is the step
+        nsplit, k_per_split = max(fit, default=1), bk
+    else:
+        want = max(1, min(n_k, per_sm * n_sm // (n_b * n_n)))  # one wave
+        steps = -(-n_k // want)
+        nsplit, k_per_split = -(-n_k // steps), steps * bk
+    if bf16:
+        nparts = n_n if by_n and n_n > 1 else 1
+    else:
+        nparts = nsplit * n_n if by_n else nsplit
     return dict(
-        by_n=by_n, bk=bk, n_b=n_b, n_n=n_n, nsplit=nsplit,
-        k_per_split=steps * bk, nparts=nsplit * n_n if by_n else nsplit,
-        grid=n_b * n_n * nsplit,
-        smem_bytes=max(NSTAGE * stage, BM * (BN + 1) * 4),
+        by_n=by_n, bf16=bf16, bm=bm, bn=bn, bk=bk, n_b=n_b, n_n=n_n,
+        nsplit=nsplit, k_per_split=k_per_split, nparts=nparts, grid=n_b * n_n * nsplit,
+        blocks_per_sm=per_sm, smem_bytes=smem,
     )
 
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_slots(device: torch.device, bn: int, by_n: bool) -> Tuple[int, ...]:
+    """Clusters of 1..8 blocks of the bf16 kernel (bn, by_n) that the card
+    holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    from .cuda_build import load_library
+
+    lib = load_library()
+    with torch.cuda.device(device):
+        slots = tuple(lib.jt_bf16_max_clusters(bn, int(by_n), size)
+                      for size in range(1, BF16_MAX_CLUSTER + 1))
+    if min(slots) < 0:
+        raise RuntimeError(
+            "cudaOccupancyMaxActiveClusters failed: "
+            + lib.jt_error_string(-min(slots)).decode())
+    return slots
+
+
+def _tma_rows(t: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """A contiguous 2-D bf16 tensor as the bf16 kernel's tensor maps read
+    it, and its row stride in elements: the tensor itself where its address
+    is 16-byte aligned and its rows a multiple of 8 elements, else a copy
+    into a zero-padded buffer with such rows (counted in
+    ``factored_masked_contract.padded``)."""
+    rows, n = (int(d) for d in t.shape)
+    if t.data_ptr() % 16 == 0 and n % 8 == 0:
+        return t, n
+    ld = -(-n // 8) * 8
+    buf = torch.zeros((rows, ld), dtype=t.dtype, device=t.device)
+    buf[:, :n] = t
+    factored_masked_contract.padded += 1
+    return buf, ld
 
 
 def _launch_kernel(
@@ -172,8 +267,10 @@ def _launch_kernel(
     out = torch.empty((B, C), dtype=torch.float32, device=pot.device)
     if out.numel() == 0 or R1 == 0 or R2 == 0:
         return out.zero_()
-    cfg = launch_config(B, R1, R2, C, _sm_count(pot.device), bf16)
-    if cfg["grid"] > MAX_GRID_X or R1 * C > MAX_GRID_X:
+    cfg = launch_config(B, R1, R2, C, _sm_count(pot.device), bf16,
+                        functools.partial(_cluster_slots, pot.device))
+    if (cfg["grid"] > MAX_GRID_X or R1 * C > MAX_GRID_X
+            or bf16 and max(B, R2, R1 * C) > MAX_GRID_X):
         raise ValueError(
             f"shape (B={B}, R1={R1}, R2={R2}, C={C}) exceeds the kernel's "
             "32-bit block and column indices"
@@ -182,10 +279,17 @@ def _launch_kernel(
     pot = (pot.permute(1, 0, 2) if cfg["by_n"] else pot).to(in_dtype).contiguous()
     w2 = w2.to(in_dtype).contiguous()
     w1 = w1.to(torch.float32).contiguous()
-    chunk = 16 // pot.element_size()  # elements per 16-byte cp.async
     ncols = R1 * C if cfg["by_n"] else C
-    vec_a = w2.data_ptr() % 16 == 0 and R2 % chunk == 0
-    vec_b = pot.data_ptr() % 16 == 0 and ncols % chunk == 0
+    if bf16:
+        # TMA reads rows at 16-byte aligned addresses and strides
+        pot, ld_pot = _tma_rows(pot.reshape(-1, ncols))
+        w2, ld_w2 = _tma_rows(w2)
+        vec_a = vec_b = False  # cp.async staging: the float32 kernel only
+    else:
+        ld_pot, ld_w2 = ncols, R2
+        chunk = 4  # floats per 16-byte cp.async
+        vec_a = w2.data_ptr() % 16 == 0 and R2 % chunk == 0
+        vec_b = pot.data_ptr() % 16 == 0 and ncols % chunk == 0
     ws = (
         out if cfg["nparts"] == 1
         else torch.empty((cfg["nparts"], B, C), dtype=torch.float32,
@@ -199,13 +303,14 @@ def _launch_kernel(
         rc = lib.jt_factored_contract(
             pot.data_ptr(), w1.data_ptr(), w2.data_ptr(), out.data_ptr(),
             ws.data_ptr(), int(bf16), int(cfg["by_n"]), B, R1, R2, C,
-            cfg["n_b"], cfg["n_n"], cfg["nsplit"], cfg["k_per_split"],
-            cfg["nparts"], int(vec_a), int(vec_b), stream,
+            cfg["bn"], cfg["n_b"], cfg["n_n"], cfg["nsplit"],
+            cfg["k_per_split"], cfg["nparts"], int(vec_a), int(vec_b),
+            ld_pot, ld_w2, stream,
         )
     if rc != 0:
         raise RuntimeError(
             "factored_contract kernel launch failed: "
-            + lib.jt_error_string(rc).decode()
+            + lib.jt_error_string(rc).decode() + f" (code {rc})"
         )
     factored_masked_contract.launches += 1
     factored_masked_contract.launches_bf16 += int(bf16)
@@ -325,7 +430,9 @@ def factored_masked_contract(
 
     Each kernel launch adds one to ``factored_masked_contract.launches``;
     one with bf16 inputs also to ``.launches_bf16``, one made by a backward
-    pass also to ``.launches_backward``."""
+    pass also to ``.launches_backward``.  ``.padded`` counts the bf16
+    operands copied into an aligned buffer first (an address or row length
+    that the Tensor Memory Accelerator cannot take)."""
     operands = (pot, w1, w2)
     if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
         if any(t.dtype == torch.bfloat16 and t.requires_grad for t in operands):
@@ -340,6 +447,7 @@ def factored_masked_contract(
 factored_masked_contract.launches = 0
 factored_masked_contract.launches_bf16 = 0
 factored_masked_contract.launches_backward = 0
+factored_masked_contract.padded = 0
 
 
 def kernel_or_plain(

@@ -2,9 +2,12 @@
 
     python junctiontree_tpu_torch/utils/bench_kernel.py [--root DIR] [--label NAME]
 
-Prints one JSON line per serving shape of the 2^18-state clique and dtype:
-the kernel's device time beside its plain version's, both taken with the
-host running ahead of the card, and the host's own time to queue one call.
+Prints one JSON line per shape and dtype: the serving shapes of the
+2^18-state clique and one model shard of each (``Engine.shard_model`` over
+4 model shards: R1 = 16), the kernel's device time beside its plain
+version's and ``library_factored_contract``'s (two library products), all
+taken with the host running ahead of the card, and the host's own time to
+queue one call.
 ``--root`` names another checkout of this repository whose package is timed
 instead, so that two versions can be compared on one card in one process
 sequence (parent, change, change, parent).  Needs a CUDA device.
@@ -19,7 +22,8 @@ import statistics
 import sys
 import time
 
-SHAPES = [(64, 2048, 2, 4096), (64, 4096, 1, 4096)]  # (R1, R2, C, B)
+SHAPES = [(64, 2048, 2, 4096), (64, 4096, 1, 4096),    # (R1, R2, C, B)
+          (16, 2048, 2, 4096), (16, 4096, 1, 4096)]    # model shards
 
 
 def device_ms(fn, iters=20, repeats=5, spin_cycles=20_000_000):
@@ -86,7 +90,8 @@ def main() -> int:
             pot = torch.rand((R2, R1, C) if by_rows else (R1, R2, C),
                              generator=g, device=dev).to(dtype)
             pot = pot.permute(1, 0, 2) if by_rows else pot
-            w1 = torch.rand((B, R1), generator=g, device=dev).to(dtype)
+            # w1 in float32, as the serving route hands it to the kernel
+            w1 = torch.rand((B, R1), generator=g, device=dev)
             w2 = torch.rand((B, R2), generator=g, device=dev).to(dtype)
             got = fc.factored_masked_contract(pot, w1, w2)
             want = fc.reference_factored_contract(pot, w1, w2)
@@ -100,6 +105,8 @@ def main() -> int:
                     lambda: fc.factored_masked_contract(pot, w1, w2)),
                 "plain_ms": device_ms(
                     lambda: fc.reference_factored_contract(pot, w1, w2)),
+                "library_ms": device_ms(
+                    lambda: fc.library_factored_contract(pot, w1, w2)),
                 "host_us_per_call": host_us(
                     lambda: fc.factored_masked_contract(pot, w1, w2)),
             }), flush=True)

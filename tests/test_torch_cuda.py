@@ -34,6 +34,8 @@ def cuda():
     "R1,R2,C,B",
     [(64, 4096, 1, 4096), (64, 2048, 2, 4096), (1, 37, 1, 5),
      (3, 50, 17, 33), (5, 70, 300, 130), (2, 40, 3, 70000),
+     # one model shard of each serving shape (shard_model over 4)
+     (16, 4096, 1, 4096), (16, 2048, 2, 4096),
      # entropy_batch (C = 1, above) and joint_marginal_batch over 2, 3, 5
      # and 6 of the 2^18-state clique's unobserved variables: both column
      # tilings around C = 32, then R1 = 1 and unaligned rows at those C
@@ -44,9 +46,9 @@ def cuda():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain(cuda, R1, R2, C, B, dtype):
     """Serving-path shapes of the 2^18-state clique (posteriors, entropy,
-    joints), ragged edges, C = 1, R1 = 1, C = 300 (r1 looped in the block),
-    and a batch large enough that r2 is not split; f32 within 1e-5 and bf16
-    inputs within 2e-2 of max|out|."""
+    joints) and their model shards, ragged edges, C = 1, R1 = 1, C = 300 (r1
+    looped in the block), and a batch large enough that r2 is not split;
+    f32 within 1e-5 and bf16 inputs within 2e-2 of max|out|."""
     g = torch.Generator(device=cuda).manual_seed(R1 + R2 + C + B)
     pot, w1, w2 = (
         torch.rand(shape, generator=g, device=cuda).to(dtype)
@@ -67,6 +69,71 @@ def _rel_err(got, want):
 
 def _tol(dtype):
     return 1e-5 if dtype == torch.float32 else 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", range(1, 65))
+def test_f32_kernel_at_every_column_count(cuda, N):
+    """float32 at every N = R1*C from 1 to 64 at B = 4096: the narrow column
+    tiles (16 and 32 columns) and the 64-column one, each with its ragged
+    edge, within 1e-5 of max|out|."""
+    C = 2 if N % 2 == 0 else 1
+    R1, R2, B = N // C, 300, 4096
+    g = torch.Generator(device=cuda).manual_seed(N)
+    pot, w1, w2 = (torch.rand(shape, generator=g, device=cuda)
+                   for shape in ((R1, R2, C), (B, R1), (B, R2)))
+    got = fc.factored_masked_contract(pot, w1, w2)
+    torch.cuda.synchronize()
+    want = fc.reference_factored_contract(pot, w1, w2)
+    assert _rel_err(got, want) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R1,R2,C", [(64, 2048, 2), (64, 4096, 1)])
+def test_bf16_kernel_serving_shapes_within_2e6(cuda, R1, R2, C):
+    """At the two serving shapes the bf16 kernel (f32 sums of exact
+    products, no tensor-core sum longer than 64 terms) stays within 2e-6
+    of max|out| of the plain version on the same bf16 inputs."""
+    B = 4096
+    g = torch.Generator(device=cuda).manual_seed(R2 + C)
+    pot = torch.rand((R2, R1, C), generator=g, device=cuda).to(
+        torch.bfloat16).permute(1, 0, 2)
+    w1 = torch.rand((B, R1), generator=g, device=cuda)
+    w2 = torch.rand((B, R2), generator=g, device=cuda).to(torch.bfloat16)
+    got = fc.factored_masked_contract(pot, w1, w2)
+    torch.cuda.synchronize()
+    want = fc.reference_factored_contract(pot, w1, w2)
+    assert _rel_err(got, want) <= 2e-6
+
+
+@pytest.mark.cuda
+def test_bf16_padding_count(cuda):
+    """bf16 operands reach the Tensor Memory Accelerator as they are on the
+    serving shapes (no copy counted), and offset views and odd rows are
+    copied into an aligned buffer (counted); float32 never counts."""
+    k1 = fc.factored_masked_contract
+    for R1, R2, C in ((64, 2048, 2), (64, 4096, 1), (16, 2048, 2)):
+        pot = torch.rand((R2, R1, C), device=cuda).to(
+            torch.bfloat16).permute(1, 0, 2)
+        w1 = torch.rand((4096, R1), device=cuda)
+        w2 = torch.rand((4096, R2), device=cuda).to(torch.bfloat16)
+        before = k1.padded
+        k1(pot, w1, w2)
+        k1(pot.float(), w1, w2.float())
+        assert k1.padded == before
+    wbuf = torch.rand(130 * 40 + 1, device=cuda).to(torch.bfloat16)
+    w2 = wbuf[1:].view(130, 40)               # address not 16-byte aligned
+    pot = torch.rand((8, 40, 2), device=cuda).to(torch.bfloat16)  # N = 16
+    w1 = torch.rand((130, 8), device=cuda)
+    before = k1.padded
+    k1(pot, w1, w2)
+    assert k1.padded == before + 1
+    k1(pot[:, :, :1].contiguous(), w1, w2)     # N = 8, w2 still offset
+    assert k1.padded == before + 2
+    k1(torch.rand((3, 40, 3), device=cuda).to(torch.bfloat16),
+       torch.rand((130, 3), device=cuda), w2.clone())  # N = 9, w2 aligned
+    assert k1.padded == before + 3
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
@@ -120,7 +187,8 @@ def test_kernel_takes_offset_views(cuda, C, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R1,R2,C", [(64, 2048, 2), (4, 96, 40)])
+@pytest.mark.parametrize(
+    "R1,R2,C", [(64, 2048, 2), (4, 96, 40), (16, 4096, 1), (5, 96, 3)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_keeps_subnormals_and_exact_zeros(cuda, R1, R2, C, dtype):
     """The serving floor 1e-38 is subnormal in f32 and bf16: a row whose
@@ -148,11 +216,14 @@ def test_kernel_keeps_subnormals_and_exact_zeros(cuda, R1, R2, C, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "R1,R2,C,B", [(64, 2048, 2, 4096), (64, 4096, 1, 4096), (5, 70, 300, 130)]
+    "R1,R2,C,B", [(64, 2048, 2, 4096), (64, 4096, 1, 4096), (5, 70, 300, 130),
+                  (16, 2048, 2, 4096), (16, 4096, 1, 4096), (5, 96, 3, 300),
+                  (64, 128, 32, 4096)]
 )
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_is_bitwise_repeatable(cuda, R1, R2, C, B, dtype):
-    """The partial sums are added in a fixed order (no atomics)."""
+    """The partial sums are added in a fixed order (no atomics): the narrow
+    f32 tiles and the bf16 cluster sums in rank order too."""
     g = torch.Generator(device=cuda).manual_seed(3)
     pot, w1, w2 = (
         torch.rand(shape, generator=g, device=cuda).to(dtype)
@@ -162,6 +233,25 @@ def test_kernel_is_bitwise_repeatable(cuda, R1, R2, C, B, dtype):
     second = fc.factored_masked_contract(pot, w1, w2)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_run_on_wgmma_and_tma(cuda):
+    """``cuobjdump -sass`` of the built library: every bf16 kernel (three
+    epilogues) holds HGMMA and UTMALDG instructions, no float32 kernel holds
+    a tensor-core instruction."""
+    from junctiontree_tpu_torch.ops import cuda_build
+
+    cuda_build.load_library()
+    counts = cuda_build.sass_op_counts()
+    assert {"bf16_by_c", "bf16_fold", "bf16_smem", "f32_by_n",
+            "f32_by_c"} <= set(counts)
+    for kind, ops in counts.items():
+        tensor = sum(ops[op] for op in cuda_build.TENSOR_CORE_OPS)
+        if kind.startswith("bf16"):
+            assert ops["HGMMA"] > 0 and ops["UTMALDG"] > 0, (kind, ops)
+        else:
+            assert tensor == 0 and ops["UTMALDG"] == 0, (kind, ops)
 
 
 @pytest.mark.cuda
@@ -897,10 +987,21 @@ def test_tp_on_one_card_launches_kernel_per_shard(cuda, dtype, monkeypatch):
     contraction of the hub (2^12 states, thresholds lowered to 2^8) launches
     the kernel once per model shard, 4 times the unsharded engine's
     launches, and the results equal the unsharded engine's (f32 1e-5, bf16
-    within 2e-2 of it) with no gathered contraction."""
+    within 2e-2 of it) with no gathered contraction.  A float32 shard's
+    launch takes the narrowest column tile that holds its R1*C columns; a
+    bf16 one reads all its columns in one tile."""
     from junctiontree_tpu_torch.parallel import make_mesh
 
     monkeypatch.setattr(DEFAULT, "big_clique_min_states", 1 << 8)
+    configs = []
+    launch_config = fc.launch_config
+
+    def recording(B, R1, R2, C, *args, **kw):
+        cfg = launch_config(B, R1, R2, C, *args, **kw)
+        configs.append((R1, C, cfg))
+        return cfg
+
+    monkeypatch.setattr(fc, "launch_config", recording)
     factors, sizes, values = _hub_model()
     plan = jt.compile_plan(factors, sizes)
     evs = jt.random_evidence_batch(plan, 256, ["t0", "t1", "h5", "h6"], seed=2)
@@ -912,8 +1013,17 @@ def test_tp_on_one_card_launches_kernel_per_shard(cuda, dtype, monkeypatch):
         eng = jt.Engine(plan, device=cuda, dtype=dtype)
         eng.shard_model(mesh, min_states=1 << 8, shard_batch=shard_batch)
         eng.set_potentials(values)
+        configs.clear()
         (post, logz), n = _launches_of(lambda: eng.posterior_batch(masks))
-        assert n0 > 0 and n == 4 * n0
+        assert n0 > 0 and n == 4 * n0 == len(configs)
+        for R1, C, cfg in configs:
+            if dtype == torch.float32 and cfg["by_n"]:
+                want = next((w for w in (16, 32) if R1 * C <= w), 64)
+                assert cfg["bn"] == want and cfg["bm"] * cfg["bn"] == 8192
+            elif cfg["by_n"]:
+                assert cfg["n_n"] == 1 or R1 * C > 128
+        assert any(cfg["bn"] < 64 for _, _, cfg in configs) == (
+            dtype == torch.float32 and any(R1 * C <= 32 for R1, C, _ in configs))
         assert eng.describe()["tp_fallbacks"] == []
         tol = 1e-5 if dtype == torch.float32 else 2e-2
         np.testing.assert_allclose(logz.cpu(), logz0.cpu(), rtol=tol, atol=tol)
