@@ -131,6 +131,41 @@ def kernel_bound_ms(R1, R2, C, B, bf16):
     return ms, by
 
 
+def split_line(pot, w1, w2):
+    """The float32 pre-pass of one kernel call with these operands: its
+    launches a call (0 for bf16 and for the narrow CUDA-core route), its
+    device time alone, and its planes held bitwise against the plain
+    version (``reference_split_pot``)."""
+    import torch
+
+    from junctiontree_tpu_torch.ops import factored_contract as fc
+    from junctiontree_tpu_torch.ops.cuda_build import load_library
+    from junctiontree_tpu_torch.utils.bench_kernel import device_ms
+
+    R1, R2, C = (int(d) for d in pot.shape)
+    B = int(w1.shape[0])
+    bf16 = torch.bfloat16 in {pot.dtype, w1.dtype, w2.dtype}
+    cfg = fc.launch_config(B, R1, R2, C, torch.cuda.get_device_properties(
+        pot.device).multi_processor_count, bf16)
+    if cfg["src"] not in ("f32x6", "f32x1"):
+        return {"split_launches_per_call": 0, "route": cfg["src"]}
+    lib, stream = load_library(), torch.cuda.current_stream().cuda_stream
+    before = fc.factored_masked_contract.splits
+    buf, ld, _ = fc._split_pot(lib, pot, cfg, stream)
+    rows = R2 if cfg["by_n"] else R1 * R2
+    n = cfg["planes"] * rows * ld
+    planes, exps = fc.reference_split_pot(pot, cfg["by_n"], cfg["bk"],
+                                          cfg["planes"])
+    torch.cuda.synchronize()
+    require(torch.equal(buf[:n].view(planes.shape), planes)
+            and torch.equal(buf[n:].view(torch.int32), exps),
+            f"the pot split disagrees with its plain version at {R1, R2, C}")
+    ms = device_ms(lambda: fc._split_pot(lib, pot, cfg, stream))
+    fc.factored_masked_contract.splits = before  # not the caller's work
+    return {"split_launches_per_call": 1, "split_ms": ms,
+            "split_matches_plain": True, "route": cfg["src"]}
+
+
 def step_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     """Median host milliseconds of one serving step ending in a sync."""
     import torch
@@ -230,7 +265,7 @@ def k1_counts_reset():
         factored_masked_contract as k1,
     )
 
-    k1.launches = k1.launches_bf16 = k1.launches_backward = 0
+    k1.launches = k1.launches_bf16 = k1.launches_backward = k1.splits = 0
     return k1
 
 
@@ -1145,10 +1180,10 @@ def k1_learning_calls_on_meta(plan, values, N):
     calls = []
     inner = fc._contract_on_device
 
-    def record(pot, w1, w2, backward=False):
+    def record(pot, w1, w2, backward=False, precision="highest"):
         calls.append((tuple(int(d) for d in pot.shape) + (int(w1.shape[0]),),
                       tuple(pot.stride()), backward))
-        return inner(pot, w1, w2, backward)
+        return inner(pot, w1, w2, backward, precision)
 
     meta = torch.device("meta")
     masks = [torch.empty((N, n), device=meta) for n in plan.sizes]
@@ -1187,7 +1222,6 @@ def phase_kernel_backward(dev, device_ms, host_us):
     import torch
 
     from junctiontree_tpu_torch.ops import factored_contract as fc
-    from junctiontree_tpu_torch.ops.autotune import PEAK_BYTES, PEAK_F32
 
     k1 = fc.factored_masked_contract
     g = torch.Generator(device=dev).manual_seed(1)
@@ -1211,6 +1245,7 @@ def phase_kernel_backward(dev, device_ms, host_us):
         require(k1.launches == 3 and k1.launches_backward == 2,
                 f"backward: {k1.launches} launches, {k1.launches_backward} "
                 "of them backward; expected 3 and 2")
+        splits = k1.splits
         want = grads(fc.reference_factored_contract)
         errs = {}
         for name, a, b in zip(("dpot", "dw1", "dw2"), got, want):
@@ -1224,11 +1259,22 @@ def phase_kernel_backward(dev, device_ms, host_us):
             require(((a - b).abs().max() / b.abs().max()).item() <= 1e-4,
                     "einsum's gradient disagrees with the plain version's")
         none = fc._contract_on_device
+
+        def g_as_w2(c=none):
+            """The other assignment: g in w2's place, an inner loop of C.
+            No path takes it, and its w2 rows (C floats) are too short for
+            the Tensor Memory Accelerator: the copy is not a serving
+            path's, so it is not counted."""
+            padded = k1.padded
+            try:
+                return c(pot.permute(0, 2, 1), w1, up)
+            finally:
+                k1.padded = padded
+
         pieces = {
             "dw1": lambda c=none: c(pot.permute(2, 1, 0), up, w2),
             "dw2": lambda c=none: c(pot.permute(2, 0, 1), up, w1),
-            # the other assignment: g in w2's place, an inner loop of C
-            "dw2_g_as_w2": lambda c=none: c(pot.permute(0, 2, 1), w1, up),
+            "dw2_g_as_w2": g_as_w2,
         }
         ref = fc.reference_factored_contract
         line = {"phase": "kernel_backward_vs_plain", "R1": R1, "R2": R2,
@@ -1237,23 +1283,31 @@ def phase_kernel_backward(dev, device_ms, host_us):
         alt = pieces["dw2_g_as_w2"]()
         require(((alt - want[2]).abs().max() / want[2].abs().max()).item()
                 <= 1e-5, "dw2 with g as w2 disagrees")
-        ops_ms = 2 * B * R1 * R2 * C / PEAK_F32 * 1e3
-        # the one PyTorch call for each kernel piece's function: a yardstick
-        # only (dpot is a library product already)
+        # the one PyTorch call for each kernel piece's function, and the two
+        # library products of library_factored_contract: yardsticks only
+        # (dpot is a library product already)
         library = {
             "dw1": lambda: torch.einsum("rsc,bc,bs->br", pot, up, w2),
             "dw2": lambda: torch.einsum("rsc,br,bc->bs", pot, w1, up),
         }
+        line["pot_splits_fwd_bwd"] = splits
         for name, fn in pieces.items():
             line[name + "_ms"] = device_ms(fn)
             line[name + "_plain_ms"] = device_ms(lambda: fn(ref))
+            line[name + "_library_factored_ms"] = device_ms(
+                lambda: fn(fc.library_factored_contract))
+        for name in ("dw1", "dw2"):
+            p3, a, b = {"dw1": (pot.permute(2, 1, 0), up, w2),
+                        "dw2": (pot.permute(2, 0, 1), up, w1)}[name]
+            line[name + "_split"] = split_line(p3, a, b)
         line["dpot_ms"] = device_ms(lambda: fc._contract_grads(
             None, pot, w1, w2, up, (True, False, False)))
         for name, fn in library.items():
             line[name + "_library_ms"] = device_ms(fn)
-        bytes_ms = 4 * (R1 * R2 * C + B * (R1 + R2 + C)) / PEAK_BYTES * 1e3
-        line["piece_bound_ms"] = max(ops_ms, bytes_ms)
-        line["piece_bound_by"] = "operations" if ops_ms > bytes_ms else "bytes"
+        # the least time of one piece (each a contraction of the same
+        # operations and bytes), f32 work at six bf16 passes' rate
+        line["piece_bound_ms"], line["piece_bound_by"] = kernel_bound_ms(
+            R1, R2, C, B, False)
         # forward and backward together on standing leaves: the Function,
         # the plain version under autograd, one einsum under autograd; the
         # spin is long enough for the slowest host side of the three
@@ -2328,24 +2382,30 @@ def run() -> int:
             f"ptxas reports register spills: {regs}")
     sass = cuda_build.sass_op_counts()
     mma = cuda_build.tensor_core_op_counts()
-    require(all(n == 0 for k, n in mma.items() if not k.startswith("bf16"))
-            and all(n > 0 for k, n in mma.items() if k.startswith("bf16")),
-            f"tensor-core operations outside the bf16 kernels: {mma}")
-    # the bf16 kernels run wgmma (HGMMA) fed by the Tensor Memory
-    # Accelerator (UTMALDG), all three epilogues of them
-    require({"bf16_by_c", "bf16_fold", "bf16_smem"} <= set(sass) and all(
-        ops["HGMMA"] > 0 and ops["UTMALDG"] > 0
-        for k, ops in sass.items() if k.startswith("bf16")),
-        f"a bf16 kernel without HGMMA or UTMALDG: {sass}")
-    # clusters of 1..8 bf16 blocks the card holds at once: what sets the
-    # bf16 kernel's split of r2 (launch_config)
-    slots = {f"bn={bn}, by_n={by_n}": list(fc._cluster_slots(dev, bn, by_n))
+    # the tensor-core kernels (bf16, and float32 at "highest" and "default",
+    # three epilogues each) run wgmma (HGMMA) fed by the Tensor Memory
+    # Accelerator (UTMALDG); the narrow float32 kernel (N <= 32), the pot
+    # split and the fixed-order sum run no tensor-core operation
+    tc_kinds = {src + epi for src in ("bf16", "f32", "f32_default")
+                for epi in ("_by_c", "_fold", "_smem")} | {"f32_fold_pairs"}
+    require(tc_kinds | {"f32_narrow", "split", "other"} == set(sass),
+            f"unexpected kernels in the library: {sorted(sass)}")
+    require(all(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0
+                for k, ops in sass.items() if k in tc_kinds),
+            f"a tensor-core kernel without HGMMA or UTMALDG: {sass}")
+    require(all(n == 0 for k, n in mma.items() if k not in tc_kinds),
+            f"tensor-core operations outside the tensor-core kernels: {mma}")
+    # clusters of 1..8 blocks the card holds at once: what sets the split
+    # of r2 (launch_config)
+    slots = {f"{src}, bn={bn}, by_n={by_n}":
+             list(fc._cluster_slots(dev, src, bn, by_n))
+             for src in ("bf16", "f32x6")
              for bn, by_n in ((64, False), (64, True), (128, True))}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "nvcc_seconds": round(cuda_build.build_seconds, 3),
           "library": cuda_build.library_path(), "ptxas": regs[:16],
           "tensor_core_op_counts": mma, "sass_op_counts": sass,
-          "bf16_cluster_slots": slots})
+          "cluster_slots": slots})
 
     # -- 3. kernel against the plain version ---------------------------------
     factors, sizes, values, names = big_clique_model()
@@ -2435,8 +2495,9 @@ def run() -> int:
             rel = abs_err / want.abs().max().item()
             # bf16 inputs: f32 sums of exact products, within 2e-6 on the
             # serving path and 2e-2 (bf16's own rounding of f32 inputs)
-            # elsewhere
-            tol = (2e-6 if serving else 2e-2) if bf16 else 1e-5
+            # elsewhere; float32 (six bf16 passes, or the narrow FMA
+            # kernel) within 2e-6 on the serving paths, 1e-5 elsewhere
+            tol = 2e-6 if serving else (2e-2 if bf16 else 1e-5)
             require(rel <= tol, f"kernel disagrees at {shape} {dtype}: {rel}")
             line = {"phase": "kernel_vs_plain", "R1": R1, "R2": R2, "C": C,
                     "B": Bk, "dtype": str(dtype).split(".")[-1],
@@ -2445,6 +2506,7 @@ def run() -> int:
             if serving:
                 again = fc.factored_masked_contract(pot, w1, w2)
                 require(torch.equal(got, again), f"two runs differ at {shape}")
+                line.update(split_line(pot, w1, w2))
                 k = device_ms(lambda: fc.factored_masked_contract(pot, w1, w2))
                 p = device_ms(lambda: fc.reference_factored_contract(pot, w1, w2))
                 # the one PyTorch call for the same function (TF32 is off);
@@ -2487,7 +2549,7 @@ def run() -> int:
             torch.cuda.synchronize()
             abs_err = (got - want).abs().max().item()
             rel = abs_err / want.abs().max().item()
-            tol = 2e-6 if bf16 else 1e-5
+            tol = 2e-6
             require(rel <= tol, f"kernel disagrees at shard {R1, R2, C, Bk} "
                                 f"{dtype}: {rel}")
             require(torch.equal(got, fc.factored_masked_contract(pot, w1, w2)),
@@ -2499,8 +2561,8 @@ def run() -> int:
             emit({"phase": "kernel_vs_plain", "shard_of": [R1 * 4, R2, C, Bk],
                   "R1": R1, "R2": R2, "C": C, "B": Bk,
                   "dtype": str(dtype).split(".")[-1], "max_abs_err": abs_err,
-                  "rel_err": rel, "tol": tol, "column_tile": cfg["bn"],
-                  "row_tile": cfg["bm"], "ms": k,
+                  "rel_err": rel, "tol": tol, "route": cfg["src"],
+                  "column_tile": cfg["bn"], "row_tile": cfg["bm"], "ms": k,
                   "plain_ms": device_ms(
                       lambda: fc.reference_factored_contract(pot, w1, w2)),
                   "library_ms": device_ms(
@@ -2530,9 +2592,22 @@ def run() -> int:
               "row_of_1e-38_rel_err": worst, "row_sum": want[0, 0].item(),
               "zero_rows_exact": True})
 
-    # every path from here on is a serving path: no bf16 operand may need a
-    # copy into an aligned buffer before its tensor maps
+    # every path from here on is a serving path: no operand may need a copy
+    # into an aligned buffer before its tensor maps; the copies, if any, are
+    # named in the failure
     fc.factored_masked_contract.padded = 0
+    copied = []
+    tma_rows = fc._tma_rows
+
+    def naming_copies(t):
+        before = fc.factored_masked_contract.padded
+        out = tma_rows(t)
+        if fc.factored_masked_contract.padded > before and len(copied) < 8:
+            copied.append((str(t.dtype), tuple(t.shape), tuple(t.stride()),
+                           t.data_ptr() % 16))
+        return out
+
+    fc._tma_rows = naming_copies
 
     # -- 3b. the measurement, precision, the native compiler, the CLI, memory
     big = dict(tree=tree, factors=factors, values=values, masks=masks,
@@ -2549,9 +2624,11 @@ def run() -> int:
     eng = tree.engine(device=dev).set_potentials(values)
     k1 = k1_counts_reset()
     (post, logz), peak_big = peak_bytes(lambda: eng.posterior_batch(masks))
-    launches = k1.launches
+    launches, splits = k1.launches, k1.splits
     require(k1.launches_bf16 == 0,
             "the float32 engine launched the bf16 kernel")
+    require(splits == launches,
+            f"{launches} float32 kernel launches but {splits} pot splits")
     require(launches == len(main_shapes),
             f"{launches} kernel launches, expected {len(main_shapes)}")
     rows = 64
@@ -2572,7 +2649,8 @@ def run() -> int:
               "kernels_per_step": n_kernels, "top_kernels": top})
     emit({"phase": "big_clique_serving", "B": B, "cliques": plan.tri.num_cliques,
           "max_clique_states": plan.stats()["max_clique_states"],
-          "kernel_launches": launches, "step_ms": t_big,
+          "kernel_launches": launches, "pot_splits": splits,
+          "step_ms": t_big,
           "queries_per_s": B / t_big * 1e3, "peak_mem_bytes": peak_big,
           "max_abs_err_vs_f64": worst, "rows_checked": rows})
     del ref, ref_post
@@ -2653,9 +2731,11 @@ def run() -> int:
     # -- 9. the parallel surface (meshes of cuda:0) ----------------------------
     tp_launches, tp_tot = phase_parallel(dev, main_shapes, profile, device_ms)
 
+    fc._tma_rows = tma_rows
     require(fc.factored_masked_contract.padded == 0,
-            f"{fc.factored_masked_contract.padded} bf16 operands of the serving "
-            "paths were copied into an aligned buffer")
+            f"{fc.factored_masked_contract.padded} operands of the serving "
+            "paths were copied into an aligned buffer (dtype, shape, strides, "
+            f"address mod 16 of the first: {copied})")
     emit({"phase": "tma_copies", "padded_on_serving_paths": 0})
 
     # -- 10. kernel table, card, result -------------------------------------

@@ -189,8 +189,8 @@ def _reconcile(old: dict, fresh: dict) -> dict:
 
 
 def _counts(fn) -> Dict[str, int]:
-    return {k: getattr(fn, k)
-            for k in ("launches", "launches_bf16", "launches_backward")}
+    return {k: getattr(fn, k) for k in
+            ("launches", "launches_bf16", "launches_backward", "splits")}
 
 
 def measure(R1: int, R2: int, C: int, B: int, dtype: str = "f32",
@@ -252,17 +252,22 @@ def measure(R1: int, R2: int, C: int, B: int, dtype: str = "f32",
 # tensor cores, bf16 dense on the tensor cores (operations a second), and
 # device memory (bytes a second)
 PEAK_F32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
+# float32 at "highest" as the TPU runs it: six bf16 tensor-core passes
+F32_PASSES = 6
 
 
 def contraction_bound(R1: int, R2: int, C: int, B: int, bf16: bool):
     """(operations, bytes, least milliseconds, "operations" or "bytes") of
     one contraction on the card: the larger of its operations over the peak
     rate of their type and its bytes (each input read once, the output
-    written once) over the memory rate."""
+    written once) over the memory rate.  float32 operations count at the
+    rate of six bf16 passes (989 / 6 TFLOP/s), the least time for
+    f32-accurate work on the tensor cores, which is how the kernel does it
+    (the FMA pipe's 67 TFLOP/s is slower)."""
     ops = 2 * B * R1 * R2 * C + 2 * B * R1 * C
     item = 2 if bf16 else 4
     nbytes = item * (R1 * R2 * C + B * R2) + 4 * (B * R1 + B * C)
-    t_ops = ops / (PEAK_BF16 if bf16 else PEAK_F32) * 1e3
+    t_ops = ops / (PEAK_BF16 if bf16 else PEAK_BF16 / F32_PASSES) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return ops, nbytes, max(t_ops, t_bytes), (
         "operations" if t_ops > t_bytes else "bytes")

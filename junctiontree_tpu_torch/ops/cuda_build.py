@@ -94,13 +94,21 @@ def load_library() -> ctypes.CDLL:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.jt_factored_contract.argtypes = [
             p, p, p, p, p, i32, i32, i64, i64, i64, i64,
-            i32, i32, i32, i32, i64, i32, i32, i32, i64, i64, p,
+            i32, i32, i32, i32, i32, i32, i32, i64, i64, p, p,
         ]
         lib.jt_factored_contract.restype = i32
+        lib.jt_factored_contract_fma.argtypes = [
+            p, p, p, p, p, i64, i64, i64, i64, i32, i32, i32, i64, i32, i32, p,
+        ]
+        lib.jt_factored_contract_fma.restype = i32
+        lib.jt_split_pot.argtypes = [
+            p, p, p, i32, i32, i64, i64, i64, i64, i64, i64, i64, i32, p,
+        ]
+        lib.jt_split_pot.restype = i32
         lib.jt_error_string.argtypes = [i32]
         lib.jt_error_string.restype = ctypes.c_char_p
-        lib.jt_bf16_max_clusters.argtypes = [i32, i32, i32]
-        lib.jt_bf16_max_clusters.restype = i32
+        lib.jt_max_clusters.argtypes = [i32, i32, i32, i32]
+        lib.jt_max_clusters.restype = i32
         _lib = lib
         return lib
 
@@ -116,17 +124,23 @@ def build_log() -> str:
 
 
 SASS_OPS = ("HMMA", "HGMMA", "IMMA", "DMMA", "QGMMA", "UTMALDG")
-# the bf16 kernel's epilogue (its enum template argument, as mangled)
-EPI_KINDS = (("EpiE0E", "_by_c"), ("EpiE1E", "_fold"), ("EpiE2E", "_smem"))
+# the tensor-core kernel's template arguments, as mangled: its operands'
+# source (bf16; f32 in six passes, "highest"; f32 in one, "default") and
+# its epilogue
+SRC_KINDS = (("SrcE0E", "bf16"), ("SrcE1E", "f32"), ("SrcE2E", "f32_default"))
+EPI_KINDS = (("EpiE0E", "_by_c"), ("EpiE1E", "_fold"), ("EpiE2E", "_smem"),
+             ("EpiE3E", "_fold_pairs"))
 TENSOR_CORE_OPS = SASS_OPS[:5]
 
 
 def sass_op_counts() -> dict:
     """Instructions of ``SASS_OPS`` (tensor-core products and ``UTMALDG``,
     the Tensor Memory Accelerator's load) in each compiled kernel of the
-    current library, counted in ``cuobjdump -sass`` and keyed by input type
-    and tiling or epilogue (``f32_by_n``, ``f32_by_c``, ``bf16_by_c``,
-    ``bf16_fold``, ``bf16_smem``; ``other`` is the fixed-order sum):
+    current library, counted in ``cuobjdump -sass`` and keyed by source and
+    epilogue of the tensor-core kernel (``bf16_by_c``, ``bf16_fold``,
+    ``bf16_smem``, ``f32_*``, ``f32_default_*``), ``f32_narrow`` (the
+    CUDA-core kernel of narrow float32 products), ``split`` (the float32
+    potential's split into bf16 planes) and ``other`` (the fixed-order sum):
     ``{kind: {op: count}}``, summed over the kernels of a kind.  {} where
     the toolkit has no cuobjdump."""
     nvcc = _nvcc()
@@ -140,10 +154,13 @@ def sass_op_counts() -> dict:
     counts: dict = {}
     for chunk in sass.split("Function : ")[1:]:
         name = chunk.split("\n", 1)[0].strip()
-        if "factored_contract_bf16_kernel" in name:  # template <BN, Epi>
-            kind = "bf16" + next((k for e, k in EPI_KINDS if e in name), "")
-        elif "factored_contract_kernel" in name:     # template <BN, BY_N>
-            kind = "f32" + ("_by_n" if "Lb1E" in name else "_by_c")
+        if "factored_contract_tc_kernel" in name:  # template <BN, Epi, Src>
+            kind = (next(k for m, k in SRC_KINDS if m in name)
+                    + next(k for m, k in EPI_KINDS if m in name))
+        elif "factored_contract_fma_kernel" in name:
+            kind = "f32_narrow"
+        elif "split_pot_kernel" in name:
+            kind = "split"
         else:
             kind = "other"
         mine = counts.setdefault(kind, dict.fromkeys(SASS_OPS, 0))
@@ -154,6 +171,6 @@ def sass_op_counts() -> dict:
 
 def tensor_core_op_counts() -> dict:
     """Tensor-core operations (``HMMA``, ``HGMMA``, ...) in each kind of
-    kernel of :func:`sass_op_counts`: the float32 kernels must hold none."""
+    kernel of :func:`sass_op_counts`."""
     return {kind: sum(ops[op] for op in TENSOR_CORE_OPS)
             for kind, ops in sass_op_counts().items()}

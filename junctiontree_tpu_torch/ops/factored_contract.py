@@ -13,11 +13,14 @@ hand-written CUDA kernel ``csrc/factored_contract.cu`` (it replaces the
 Pallas TPU kernel ``factored_masked_contract``,
 ``junctiontree_tpu/ops/pallas_contract.py:181-307``): a tiled product of
 ``w2`` with the potential whose [B, R1, C] result stays in registers and
-shared memory, float32 FMAs for float32 inputs and tensor-core ``wgmma``
-fed by the Tensor Memory Accelerator for bfloat16, with the ``w1`` sum
-fused behind it.
+shared memory, on tensor-core ``wgmma`` fed by the Tensor Memory
+Accelerator (bfloat16 in one pass, float32 in six bf16 passes, as XLA runs
+"highest" on the TPU, after a small kernel splits the float32 potential
+into bf16 planes), with the ``w1`` sum fused behind it; float32 products of
+at most 32 columns (the model shards) run plain f32 FMAs on the CUDA cores.
 
-:func:`reference_factored_contract` is the plain PyTorch version.  The
+:func:`reference_factored_contract` is the plain PyTorch version (and
+:func:`reference_split_pot` that of the split).  The
 wrapper :func:`factored_masked_contract` uses it only for tensors that lie
 on the CPU; for a CUDA tensor it launches the kernel or raises.
 :func:`library_factored_contract` computes the same function as two library
@@ -37,16 +40,23 @@ import torch
 from .semirings import SUM_PRODUCT, pinned_precision
 
 # kernel constants; they must match csrc/factored_contract.cu
-F32_NT = 128           # float32: threads per block, BM * BN = 64 * F32_NT
-F32_BK, F32_NSTAGE = 16, 3        # r2 elements per step, cp.async stages
-F32_BLOCKS_PER_SM = 2  # the float32 kernel's launch bounds
-BF16_BM, BF16_BK = 128, 64  # bfloat16: rows per block, r2 per stage
-BF16_RING_BYTES = 192 * 1024  # the bf16 block's TMA ring; one block an SM
-BF16_MAX_CLUSTER = 8   # blocks of one cluster (the portable limit)
+TC_BM = 128            # rows per block: two consumer warpgroups of 64
+BK = {"bf16": 64, "f32x6": 32, "f32x1": 32}  # r2 a stage: a 128-byte w2 row
+PLANES = {"bf16": 1, "f32x6": 3, "f32x1": 1}  # bf16 planes of pot
+RING_BYTES = {"bf16": 192 * 1024, "f32x6": 200 * 1024, "f32x1": 200 * 1024}
+SRC_CODE = {"bf16": 0, "f32x6": 1, "f32x1": 2}  # jt_factored_contract's src
+MAX_CLUSTER = 8        # blocks of one cluster (the portable limit)
 BY_N_MAX_C = 32        # widest separator whose columns are tiled as (r1, c)
+# float32 products of at most this many columns (the model shards) run on
+# the CUDA cores (jt_factored_contract_fma), where they measured faster
+FMA_MAX_N = 32
+FMA_NT, FMA_BK, FMA_NSTAGE = 128, 16, 3  # threads, r2 a step, cp.async stages
+FMA_BLOCKS_PER_SM = 2  # the narrow kernel's launch bounds
 MAX_GRID_X = 2**31 - 1
 MAX_SMEM_PER_BLOCK = 232_448
 SMEM_PER_SM = 233_472  # of which the card reserves 1 KB for each block
+# the TPU kernel's precision argument: float32 in six bf16 passes, or one
+PRECISIONS = ("highest", "default")
 
 
 def reference_factored_contract(
@@ -114,94 +124,140 @@ def tiles_by_n(C: int) -> bool:
     return C <= BY_N_MAX_C
 
 
-def f32_smem_bytes(bn: int) -> int:
-    """Shared memory of a float32 block with ``bn`` columns: the cp.async
-    ring of padded w2 [BM, 16 + 4] and pot [16, bn] tiles, reused by the
-    epilogue's [BM, bn + 1] tile of sums."""
-    bm, bk = 64 * F32_NT // bn, F32_BK
-    return max(F32_NSTAGE * (bm * (bk + 4) + bk * bn) * 4, bm * (bn + 1) * 4)
+def source(bf16: bool, precision: str = "highest", ncols: int = None) -> str:
+    """Which kernel, and where its operands come from: "bf16" (bf16 ``w2``
+    and ``pot``, one pass, whatever ``precision`` asks), "fma" (float32 with
+    at most ``FMA_MAX_N`` columns: plain f32 FMAs, exact at either
+    precision), "f32x6" (f32 ``w2`` split in registers and the three bf16
+    planes of ``pot``: six passes, "highest") or "f32x1" (one pass,
+    "default").  ``ncols`` is the "n" tiling's N = R1*C (None: the "c"
+    tiling)."""
+    if precision not in PRECISIONS:
+        raise ValueError(
+            f"precision must be one of {PRECISIONS}, got {precision!r}")
+    if bf16:
+        return "bf16"
+    if ncols is not None and ncols <= FMA_MAX_N:
+        return "fma"
+    return "f32x6" if precision == "highest" else "f32x1"
 
 
-def bf16_stages(bn: int) -> int:
-    """Stages of a bfloat16 block's TMA ring: w2 [128, 64] and pot [64, bn]
-    tiles."""
-    return BF16_RING_BYTES // (BF16_BM * BF16_BK * 2 + BF16_BK * bn * 2)
+def fma_smem_bytes(bn: int) -> int:
+    """Shared memory of a narrow float32 block with ``bn`` columns: the
+    cp.async ring of padded w2 [BM, 16 + 4] and pot [16, bn] tiles, reused
+    by the epilogue's [BM, bn + 1] tile of sums."""
+    bm = 64 * FMA_NT // bn
+    return max(FMA_NSTAGE * (bm * (FMA_BK + 4) + FMA_BK * bn) * 4,
+               bm * (bn + 1) * 4)
 
 
-def bf16_smem_bytes(bn: int) -> int:
-    """Shared memory of a bfloat16 block with ``bn`` columns: the ring
-    (which the epilogue reuses), its mbarriers and 1 KB to align the ring
-    for the 128-byte swizzle."""
-    st = bf16_stages(bn)
-    return st * (BF16_BM * BF16_BK * 2 + BF16_BK * bn * 2) + 16 * st + 1024
+def _fma_config(B: int, R1: int, R2: int, C: int, n_sm: int) -> dict:
+    """Grid of the narrow float32 kernel: a block of 128 threads owns
+    ``bm = 8192 / bn`` rows by all N <= ``bn`` (16 or 32) columns, and r2
+    is split into contiguous ranges (``k_per_split``, in steps of 16) until
+    every SM holds as many blocks as fit; the ``nsplit`` [B, C] partials
+    are added in a fixed order by a second kernel."""
+    bn = 16 if R1 * C <= 16 else 32
+    bm = 64 * FMA_NT // bn
+    smem = fma_smem_bytes(bn)
+    per_sm = min(FMA_BLOCKS_PER_SM, SMEM_PER_SM // (smem + 1024))
+    n_b = -(-B // bm)
+    n_k = -(-R2 // FMA_BK)
+    want = max(1, min(n_k, per_sm * n_sm // n_b))  # one wave
+    steps = -(-n_k // want)
+    nsplit = -(-n_k // steps)
+    return dict(
+        by_n=True, bf16=False, src="fma", planes=0, bm=bm, bn=bn, bk=FMA_BK,
+        stages=FMA_NSTAGE, n_b=n_b, n_n=1, nsplit=nsplit, kparts=1,
+        k_per_split=steps * FMA_BK, nparts=nsplit, grid=n_b * nsplit,
+        blocks_per_sm=per_sm, smem_bytes=smem,
+    )
+
+
+def stage_bytes(bn: int, src: str) -> int:
+    """One stage of the block's TMA ring: the w2 tile [128 rows, 128 bytes]
+    and, per bf16 plane of pot, ``bn // 64`` boxes [BK r2, 64 columns]."""
+    return TC_BM * 128 + PLANES[src] * (bn // 64) * BK[src] * 128
+
+
+def stages(bn: int, src: str) -> int:
+    """Stages of the block's ring."""
+    return RING_BYTES[src] // stage_bytes(bn, src)
+
+
+def smem_bytes(bn: int, src: str) -> int:
+    """Shared memory of a block with ``bn`` columns: the ring (which the
+    epilogue reuses), its mbarriers and 1 KB to align the ring for the
+    128-byte swizzle."""
+    st = stages(bn, src)
+    return st * stage_bytes(bn, src) + 16 * st + 1024
 
 
 def launch_config(
     B: int, R1: int, R2: int, C: int, n_sm: int, bf16: bool = False,
-    cluster_slots=None,
+    cluster_slots=None, precision: str = "highest",
 ) -> dict:
-    """Grid of the CUDA kernel.  A block owns ``bm`` batch rows by ``bn``
-    columns (see :func:`tiles_by_n`) and one range of r2, ``k_per_split``
-    long, walked in steps of ``bk``.  When the row and column tiles alone
-    cannot fill the card, r2 is split across ``nsplit`` blocks.
+    """Grid of the CUDA kernel.  A block owns ``bm = 128`` batch rows by
+    ``bn`` columns (see :func:`tiles_by_n`: 64, or 128 where the "n"
+    tiling's N = R1*C exceeds 64; wider N takes several column tiles) and
+    walks r2 in stages of ``bk`` (64 bf16 or 32 f32: one 128-byte row of
+    w2) through a ring of ``stages``.  ``src`` (:func:`source`) names the
+    operands: bf16, or f32 in six or one bf16 passes.
 
-    float32: ``bm * bn = 8192`` with ``bn`` the narrowest of 16, 32 and 64
-    that holds the "n" tiling's N = R1*C columns (64 for wider N and for the
-    "c" tiling), and r2 split until every SM holds ``blocks_per_sm`` blocks.
-    Each of the ``nparts`` [B, C] partials (one per r2 range, and with the
-    "n" tiling per column tile) is added by a second kernel in a fixed
-    order.
+    r2 is split ``kparts * nsplit`` ways: the ``nsplit`` blocks of one
+    cluster add their partials in rank order, and each of a tile's
+    ``kparts`` clusters leaves a partial, as does each column tile of the
+    "n" tiling (``nparts`` in all), for a second kernel that adds them in a
+    fixed order.  Clusters are only as large as lets all of them be
+    resident at once: ``cluster_slots(bn, by_n)`` gives the clusters of
+    each size 1..8 that the card holds (the wrapper asks the card for the
+    kernel of ``src``; by default ``n_sm // size``, as if they packed
+    perfectly).  float32 splits r2 as many ways as make one wave of blocks
+    (at most the r2 steps), taking of those the largest cluster; bfloat16
+    splits it over one cluster alone, the largest that fits (``kparts =
+    1``): on an H100 the second kernel's launch cost bf16 more than the SMs
+    it left idle, and f32, whose stages take longer, less.  Block z of a
+    tile's splits takes the r2 steps ``z, z + kparts * nsplit, ...``
+    (``k_per_split`` is the step, ``bk``), so that a cluster reads
+    neighbouring pieces of the same w2 rows at once.
 
-    bfloat16: ``bm = 128``, ``bn`` 64 or 128 (the "n" tiling takes all of
-    N <= 128 in one tile), and the ``nsplit`` r2 ranges of a tile are the
-    blocks of one cluster, which add their partials in rank order; only
-    several column tiles of the "n" tiling leave ``nparts = n_n`` partials
-    for the second kernel.  ``nsplit`` is the largest cluster size (at most
-    8) at which every tile's cluster is resident at once:
-    ``cluster_slots(bn, by_n)`` gives the clusters of each size 1..8 that
-    the card holds (the wrapper asks the card; by default ``n_sm // size``,
-    as if they packed perfectly).  Block ``split`` of a cluster takes the r2
-    steps ``split, split + nsplit, ...`` (``k_per_split`` is then the step,
-    64), so that the cluster reads neighbouring pieces of the same w2 rows
-    at once.
+    ``grid`` blocks in all, one an SM: one a tile and split, but the "c"
+    tiling without clusters (more tiles than SMs) runs one wave of
+    ``n_sm`` blocks that walk the tiles in turn.  ``smem_bytes`` is the
+    block's shared memory.
 
-    ``grid`` blocks in all; ``smem_bytes`` is the block's shared memory."""
+    A float32 product of at most ``FMA_MAX_N`` columns takes the narrow
+    CUDA-core kernel instead (:func:`_fma_config`, ``src`` "fma")."""
     by_n = tiles_by_n(C)
     ncols = R1 * C if by_n else C
-    if bf16:
-        bm, bk = BF16_BM, BF16_BK
-        bn = 128 if by_n and ncols > 64 else 64
-        smem = bf16_smem_bytes(bn)
-        per_sm = 1
-    else:
-        bn = next((w for w in (16, 32) if by_n and ncols <= w), 64)
-        bm, bk = 64 * F32_NT // bn, F32_BK
-        smem = f32_smem_bytes(bn)
-        per_sm = min(F32_BLOCKS_PER_SM, SMEM_PER_SM // (smem + 1024))
+    src = source(bf16, precision, ncols if by_n else None)
+    if src == "fma":
+        return _fma_config(B, R1, R2, C, n_sm)
+    bm, bk = TC_BM, BK[src]
+    bn = 128 if by_n and ncols > 64 else 64
     n_b = -(-B // bm)
     n_n = -(-ncols // bn)
     n_k = -(-R2 // bk)
-    if bf16:
-        slots = (cluster_slots(bn, by_n) if cluster_slots is not None else
-                 [per_sm * n_sm // size
-                  for size in range(1, BF16_MAX_CLUSTER + 1)])
-        fit = [size for size in range(1, min(BF16_MAX_CLUSTER, n_k) + 1)
-               if slots[size - 1] >= n_b * n_n]
-        # block `split` of a cluster takes the r2 steps split, split +
-        # nsplit, ...: k_per_split is the step
-        nsplit, k_per_split = max(fit, default=1), bk
-    else:
-        want = max(1, min(n_k, per_sm * n_sm // (n_b * n_n)))  # one wave
-        steps = -(-n_k // want)
-        nsplit, k_per_split = -(-n_k // steps), steps * bk
-    if bf16:
-        nparts = n_n if by_n and n_n > 1 else 1
-    else:
-        nparts = nsplit * n_n if by_n else nsplit
+    tiles = n_b * n_n
+    slots = (cluster_slots(bn, by_n) if cluster_slots is not None else
+             [n_sm // size for size in range(1, MAX_CLUSTER + 1)])
+    # splits that fill one wave (bf16: one cluster, as large as fits)
+    want = max(1, min(n_k, n_sm // tiles if not bf16 else MAX_CLUSTER))
+    # (blocks, cluster size) of each size whose clusters all fit at once
+    fits = [(size * k, size) for size in range(1, MAX_CLUSTER + 1)
+            for k in [min(want // size, slots[size - 1] // tiles,
+                          1 if bf16 else want)] if k > 0]
+    _, nsplit = max(fits, default=(1, 1))
+    kparts = max(1, want // nsplit) if fits and not bf16 else 1
+    grid = tiles * kparts * nsplit
+    if not by_n and grid == tiles and tiles > n_sm:
+        grid = n_sm  # one wave that walks the tiles
     return dict(
-        by_n=by_n, bf16=bf16, bm=bm, bn=bn, bk=bk, n_b=n_b, n_n=n_n,
-        nsplit=nsplit, k_per_split=k_per_split, nparts=nparts, grid=n_b * n_n * nsplit,
-        blocks_per_sm=per_sm, smem_bytes=smem,
+        by_n=by_n, bf16=bf16, src=src, planes=PLANES[src], bm=bm, bn=bn,
+        bk=bk, stages=stages(bn, src), n_b=n_b, n_n=n_n, nsplit=nsplit,
+        kparts=kparts, k_per_split=bk,
+        nparts=kparts * (n_n if by_n else 1), grid=grid, blocks_per_sm=1,
+        smem_bytes=smem_bytes(bn, src),
     )
 
 
@@ -211,15 +267,16 @@ def _sm_count(device: torch.device) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _cluster_slots(device: torch.device, bn: int, by_n: bool) -> Tuple[int, ...]:
-    """Clusters of 1..8 blocks of the bf16 kernel (bn, by_n) that the card
+def _cluster_slots(device: torch.device, src: str, bn: int,
+                   by_n: bool) -> Tuple[int, ...]:
+    """Clusters of 1..8 blocks of the kernel (src, bn, by_n) that the card
     holds at once (``cudaOccupancyMaxActiveClusters``)."""
     from .cuda_build import load_library
 
     lib = load_library()
     with torch.cuda.device(device):
-        slots = tuple(lib.jt_bf16_max_clusters(bn, int(by_n), size)
-                      for size in range(1, BF16_MAX_CLUSTER + 1))
+        slots = tuple(lib.jt_max_clusters(SRC_CODE[src], bn, int(by_n), size)
+                      for size in range(1, MAX_CLUSTER + 1))
     if min(slots) < 0:
         raise RuntimeError(
             "cudaOccupancyMaxActiveClusters failed: "
@@ -228,26 +285,95 @@ def _cluster_slots(device: torch.device, bn: int, by_n: bool) -> Tuple[int, ...]
 
 
 def _tma_rows(t: torch.Tensor) -> Tuple[torch.Tensor, int]:
-    """A contiguous 2-D bf16 tensor as the bf16 kernel's tensor maps read
-    it, and its row stride in elements: the tensor itself where its address
-    is 16-byte aligned and its rows a multiple of 8 elements, else a copy
-    into a zero-padded buffer with such rows (counted in
+    """A contiguous 2-D tensor as the kernel's tensor maps read it, and its
+    row stride in elements: the tensor itself where its address is 16-byte
+    aligned and its rows a multiple of 16 bytes, else a copy into a
+    zero-padded buffer with such rows (counted in
     ``factored_masked_contract.padded``)."""
     rows, n = (int(d) for d in t.shape)
-    if t.data_ptr() % 16 == 0 and n % 8 == 0:
+    per = 16 // t.element_size()
+    if t.data_ptr() % 16 == 0 and n % per == 0:
         return t, n
-    ld = -(-n // 8) * 8
+    ld = -(-n // per) * per
     buf = torch.zeros((rows, ld), dtype=t.dtype, device=t.device)
     buf[:, :n] = t
     factored_masked_contract.padded += 1
     return buf, ld
 
 
+def reference_split_pot(pot: torch.Tensor, by_n: bool, bk: int,
+                        planes: int = 3) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the kernel's split of a float32 ``pot`` [R1, R2, C]:
+    ``(planes [planes, rows, ld] bf16, exponents [boxes] int32)`` as
+    ``jt_split_pot`` writes them.  Rows are r2 ("n" tiling, ``by_n``:
+    columns n = (r1, c)) or (r1, r2) (columns c); ``ld`` pads the columns
+    to 8.  Each box of ``bk`` rows (of one r1 in the "c" tiling) and 64
+    columns is scaled by 2^-e, e the exponent of its largest |pot| (0 for
+    zeros), and written hi, mid, lo (hi alone for ``planes = 1``) with
+    round-to-nearest-even, so that hi + mid + lo = pot * 2^-e to f32's
+    precision."""
+    R1, R2, C = (int(d) for d in pot.shape)
+    x = pot.float().permute(1, 0, 2).reshape(R2, R1 * C) if by_n else \
+        pot.float().reshape(R1, R2, C)
+    x = x.reshape(1 if by_n else R1, R2, -1)
+    ncols = x.shape[2]
+    ld = -(-ncols // 8) * 8
+    n_k, ncb = -(-R2 // bk), -(-ncols // 64)
+    pad = torch.zeros((x.shape[0], n_k * bk, ncb * 64), dtype=torch.float32,
+                      device=pot.device)
+    pad[:, :R2, :ncols] = x
+    boxes = pad.reshape(x.shape[0], n_k, bk, ncb, 64).permute(0, 1, 3, 2, 4)
+    m = boxes.abs().amax(dim=(3, 4))
+    exps = torch.where(m > 0, torch.frexp(m)[1] - 1,
+                       torch.zeros_like(m, dtype=torch.int32))
+    k = -exps.long()
+    h = torch.div(k, 2, rounding_mode="trunc")
+    scale = (torch.exp2(h.double()) * torch.exp2((k - h).double())).float()
+    y = (boxes * scale[..., None, None]).permute(0, 1, 3, 2, 4).reshape(
+        x.shape[0], n_k * bk, ncb * 64)[:, :R2, :ld]
+    parts = []
+    for _ in range(planes):
+        p = y.to(torch.bfloat16)
+        parts.append(p)
+        y = y - p.float()
+    out = torch.stack(parts).reshape(planes, -1, ld)
+    return out, exps.reshape(-1).to(torch.int32)
+
+
+def _split_pot(lib, pot: torch.Tensor, cfg: dict, stream
+               ) -> Tuple[torch.Tensor, int, int]:
+    """Launch the split of the float32 ``pot`` (any strides) into the
+    kernel's bf16 planes (hi, mid, lo; hi alone for one pass), in the layout
+    of ``cfg``'s tiling with rows padded to 16 bytes, each box of ``bk``
+    rows and 64 columns (what one pot box of a stage holds) scaled by the
+    exponent of its largest |pot|.  Returns the buffer, its row stride and
+    the address of the boxes' exponents (int32), which the buffer holds
+    behind the planes.  Counts ``factored_masked_contract.splits``."""
+    R1, R2, C = (int(d) for d in pot.shape)
+    rows, ncols = (R2, R1 * C) if cfg["by_n"] else (R1 * R2, C)
+    ld = -(-ncols // 8) * 8
+    boxes = (1 if cfg["by_n"] else R1) * -(-R2 // cfg["bk"]) * -(-ncols // 64)
+    n = cfg["planes"] * rows * ld
+    buf = torch.empty(n + 2 * boxes, dtype=torch.bfloat16, device=pot.device)
+    exps = buf.data_ptr() + 2 * n  # 16-byte aligned: ld is a multiple of 8
+    rc = lib.jt_split_pot(
+        pot.data_ptr(), buf.data_ptr(), exps, cfg["planes"], int(cfg["by_n"]),
+        R1, R2, C, *pot.stride(), ld, cfg["bk"], stream)
+    if rc != 0:
+        raise RuntimeError(
+            "factored_contract split launch failed: "
+            + lib.jt_error_string(rc).decode() + f" (code {rc})")
+    factored_masked_contract.splits += 1
+    return buf, ld, exps
+
+
 def _launch_kernel(
-    pot: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, backward: bool = False
+    pot: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+    backward: bool = False, precision: str = "highest",
 ) -> torch.Tensor:
     """Check the operands and launch the CUDA kernel once (CUDA tensors
-    only).  Returns the float32 [B, C] result; counts the launch."""
+    only), after the split of a float32 ``pot``.  Returns the float32
+    [B, C] result; counts the launch."""
     if pot.dim() != 3 or w1.dim() != 2 or w2.dim() != 2:
         raise ValueError("expected pot [R1, R2, C], w1 [B, R1], w2 [B, R2]")
     R1, R2, C = (int(d) for d in pot.shape)
@@ -263,49 +389,51 @@ def _launch_kernel(
     if not dtypes <= {torch.float32, torch.bfloat16}:
         raise TypeError(f"the CUDA kernel takes float32 or bfloat16, got {dtypes}")
     bf16 = torch.bfloat16 in dtypes
-    in_dtype = torch.bfloat16 if bf16 else torch.float32
+    src = source(bf16, precision, R1 * C if tiles_by_n(C) else None)
     out = torch.empty((B, C), dtype=torch.float32, device=pot.device)
     if out.numel() == 0 or R1 == 0 or R2 == 0:
         return out.zero_()
     cfg = launch_config(B, R1, R2, C, _sm_count(pot.device), bf16,
-                        functools.partial(_cluster_slots, pot.device))
-    if (cfg["grid"] > MAX_GRID_X or R1 * C > MAX_GRID_X
-            or bf16 and max(B, R2, R1 * C) > MAX_GRID_X):
+                        functools.partial(_cluster_slots, pot.device, src),
+                        precision)
+    if cfg["grid"] > MAX_GRID_X or max(B, R2, R1 * C) > MAX_GRID_X:
         raise ValueError(
             f"shape (B={B}, R1={R1}, R2={R2}, C={C}) exceeds the kernel's "
             "32-bit block and column indices"
         )
-    # no copy where the caller already has the dtype and layout the kernel reads
-    pot = (pot.permute(1, 0, 2) if cfg["by_n"] else pot).to(in_dtype).contiguous()
-    w2 = w2.to(in_dtype).contiguous()
-    w1 = w1.to(torch.float32).contiguous()
-    ncols = R1 * C if cfg["by_n"] else C
-    if bf16:
-        # TMA reads rows at 16-byte aligned addresses and strides
-        pot, ld_pot = _tma_rows(pot.reshape(-1, ncols))
-        w2, ld_w2 = _tma_rows(w2)
-        vec_a = vec_b = False  # cp.async staging: the float32 kernel only
-    else:
-        ld_pot, ld_w2 = ncols, R2
-        chunk = 4  # floats per 16-byte cp.async
-        vec_a = w2.data_ptr() % 16 == 0 and R2 % chunk == 0
-        vec_b = pot.data_ptr() % 16 == 0 and ncols % chunk == 0
-    ws = (
-        out if cfg["nparts"] == 1
-        else torch.empty((cfg["nparts"], B, C), dtype=torch.float32,
-                         device=pot.device)
-    )
     from .cuda_build import load_library
 
     lib = load_library()
     stream = torch.cuda.current_stream(pot.device).cuda_stream
+    ncols = R1 * C if cfg["by_n"] else C
+    if cfg["src"] == "fma":
+        _launch_fma(lib, pot, w1, w2, out, cfg, stream)
+        factored_masked_contract.launches += 1
+        factored_masked_contract.launches_backward += int(backward)
+        return out
     with torch.cuda.device(pot.device):
+        if bf16:
+            # no copy where the caller already has the layout the kernel
+            # reads; TMA reads rows at 16-byte aligned addresses and strides
+            pot = (pot.permute(1, 0, 2) if cfg["by_n"] else pot).to(
+                torch.bfloat16).contiguous()
+            pot, ld_pot = _tma_rows(pot.reshape(-1, ncols))
+            exps = None
+        else:
+            pot, ld_pot, exps = _split_pot(lib, pot, cfg, stream)
+        w2, ld_w2 = _tma_rows(w2.to(pot.dtype if bf16 else torch.float32)
+                              .contiguous())
+        w1 = w1.to(torch.float32).contiguous()
+        ws = (
+            out if cfg["nparts"] == 1
+            else torch.empty((cfg["nparts"], B, C), dtype=torch.float32,
+                             device=out.device)
+        )
         rc = lib.jt_factored_contract(
             pot.data_ptr(), w1.data_ptr(), w2.data_ptr(), out.data_ptr(),
-            ws.data_ptr(), int(bf16), int(cfg["by_n"]), B, R1, R2, C,
-            cfg["bn"], cfg["n_b"], cfg["n_n"], cfg["nsplit"],
-            cfg["k_per_split"], cfg["nparts"], int(vec_a), int(vec_b),
-            ld_pot, ld_w2, stream,
+            ws.data_ptr(), SRC_CODE[src], int(cfg["by_n"]), B, R1, R2, C,
+            cfg["bn"], cfg["n_b"], cfg["n_n"], cfg["nsplit"], cfg["kparts"],
+            cfg["grid"], cfg["nparts"], ld_pot, ld_w2, exps, stream,
         )
     if rc != 0:
         raise RuntimeError(
@@ -318,11 +446,38 @@ def _launch_kernel(
     return out
 
 
-def _contract_on_device(pot, w1, w2, backward=False):
+def _launch_fma(lib, pot, w1, w2, out, cfg, stream) -> None:
+    """Launch the narrow float32 kernel: pot as contiguous [R2, R1*C] rows
+    (no copy where the caller hands that layout), w2 staged in 16-byte
+    chunks where its rows allow."""
+    R1, R2, C = (int(d) for d in pot.shape)
+    B = int(w1.shape[0])
+    pot = pot.permute(1, 0, 2).to(torch.float32).contiguous()
+    w2 = w2.to(torch.float32).contiguous()
+    w1 = w1.to(torch.float32).contiguous()
+    chunk = 4  # floats per 16-byte cp.async
+    vec_a = w2.data_ptr() % 16 == 0 and R2 % chunk == 0
+    vec_b = pot.data_ptr() % 16 == 0 and (R1 * C) % chunk == 0
+    ws = (out if cfg["nsplit"] == 1 else torch.empty(
+        (cfg["nsplit"], B, C), dtype=torch.float32, device=out.device))
+    with torch.cuda.device(out.device):
+        rc = lib.jt_factored_contract_fma(
+            pot.data_ptr(), w1.data_ptr(), w2.data_ptr(), out.data_ptr(),
+            ws.data_ptr(), B, R1, R2, C, cfg["bn"], cfg["n_b"],
+            cfg["nsplit"], cfg["k_per_split"], int(vec_a), int(vec_b),
+            stream)
+    if rc != 0:
+        raise RuntimeError(
+            "factored_contract kernel launch failed: "
+            + lib.jt_error_string(rc).decode() + f" (code {rc})")
+
+
+def _contract_on_device(pot, w1, w2, backward=False, precision="highest"):
     """The contraction where the tensors lie: the kernel on the card, the
-    plain version on the CPU (and on meta tensors)."""
+    plain version on the CPU (and on meta tensors), exact at either
+    precision there, as XLA computes on the CPU."""
     if pot.is_cuda:
-        return _launch_kernel(pot, w1, w2, backward)
+        return _launch_kernel(pot, w1, w2, backward, precision)
     return reference_factored_contract(pot, w1, w2)
 
 
@@ -393,9 +548,10 @@ class _FactoredContract(torch.autograd.Function):
     gradient that no input asks for is not computed."""
 
     @staticmethod
-    def forward(ctx, pot, w1, w2):
+    def forward(ctx, pot, w1, w2, precision):
         ctx.save_for_backward(pot, w1, w2)
-        return _contract_on_device(pot, w1, w2)
+        ctx.precision = precision
+        return _contract_on_device(pot, w1, w2, precision=precision)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -403,23 +559,32 @@ class _FactoredContract(torch.autograd.Function):
         pot, w1, w2 = ctx.saved_tensors
 
         def contract(p, a, b):
-            return _contract_on_device(p, a, b, backward=True)
+            return _contract_on_device(p, a, b, True, ctx.precision)
 
-        return _contract_grads(contract, pot, w1, w2, g, ctx.needs_input_grad)
+        return _contract_grads(contract, pot, w1, w2, g,
+                               ctx.needs_input_grad[:3]) + (None,)
 
 
 def factored_masked_contract(
-    pot: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor
+    pot: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+    precision: str = "highest",
 ) -> torch.Tensor:
     """out[b, c] = sum_{r1, r2} pot[r1, r2, c] * w1[b, r1] * w2[b, r2].
 
     pot: [R1, R2, C], w1: [B, R1], w2: [B, R2]; float32 or bfloat16 on the
     card (any bf16 input puts pot and w2 in bf16; w1 is read as f32; the
-    accumulator and the [B, C] output are f32).  With C <= 32 the kernel
-    reads pot as [R2, R1*C] rows: a pot that is a ``permute(1, 0, 2)`` view
-    of a contiguous [R2, R1, C] tensor, as :func:`big_clique_sep_message`
-    passes it, is used as it is, and any other is copied once.  CPU tensors
-    take :func:`reference_factored_contract`.
+    accumulator and the [B, C] output are f32).  CPU tensors take
+    :func:`reference_factored_contract`, exact at either precision.
+
+    ``precision``, as the TPU kernel's: "highest" (the default) runs float32
+    in six bf16 tensor-core passes, f32-accurate; "default" in one bf16
+    pass with f32 accumulation (~1e-3 relative); any other string raises
+    ``ValueError``.  bf16 inputs take one pass whatever is asked.  A
+    float32 ``pot`` is first split into bf16 planes by a small kernel that
+    reads it through its strides (no copy); a bf16 ``pot`` is read as
+    [R2, R1*C] rows for C <= 32: a ``permute(1, 0, 2)`` view of a
+    contiguous [R2, R1, C] tensor, as :func:`big_clique_sep_message` passes
+    it, is used as it is, and any other is copied once.
 
     When an input requires a gradient the call goes through a
     ``torch.autograd.Function`` on every device: ``dw1`` and ``dw2`` are
@@ -430,9 +595,13 @@ def factored_masked_contract(
 
     Each kernel launch adds one to ``factored_masked_contract.launches``;
     one with bf16 inputs also to ``.launches_bf16``, one made by a backward
-    pass also to ``.launches_backward``.  ``.padded`` counts the bf16
-    operands copied into an aligned buffer first (an address or row length
-    that the Tensor Memory Accelerator cannot take)."""
+    pass also to ``.launches_backward``.  ``.splits`` counts the float32
+    potentials split into bf16 planes (one before each float32 launch on
+    the tensor cores; none before a narrow one).
+    ``.padded`` counts the ``w2`` and bf16 ``pot`` operands copied into an
+    aligned buffer first (an address or row length that the Tensor Memory
+    Accelerator cannot take)."""
+    source(False, precision)  # an unknown precision raises on every device
     operands = (pot, w1, w2)
     if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
         if any(t.dtype == torch.bfloat16 and t.requires_grad for t in operands):
@@ -440,13 +609,14 @@ def factored_masked_contract(
                 "a bfloat16 input requires a gradient: bfloat16 is a storage "
                 "dtype for serving; learn in float32 or float64"
             )
-        return _FactoredContract.apply(pot, w1, w2)
-    return _contract_on_device(pot, w1, w2)
+        return _FactoredContract.apply(pot, w1, w2, precision)
+    return _contract_on_device(pot, w1, w2, precision=precision)
 
 
 factored_masked_contract.launches = 0
 factored_masked_contract.launches_bf16 = 0
 factored_masked_contract.launches_backward = 0
+factored_masked_contract.splits = 0
 factored_masked_contract.padded = 0
 
 

@@ -3,11 +3,13 @@
     python junctiontree_tpu_torch/utils/bench_kernel.py [--root DIR] [--label NAME]
 
 Prints one JSON line per shape and dtype: the serving shapes of the
-2^18-state clique and one model shard of each (``Engine.shard_model`` over
-4 model shards: R1 = 16), the kernel's device time beside its plain
-version's and ``library_factored_contract``'s (two library products), all
-taken with the host running ahead of the card, and the host's own time to
-queue one call.
+2^18-state clique, one model shard of each (``Engine.shard_model`` over 4
+model shards: R1 = 16), the weight gradients ``dw1`` and ``dw2`` at the
+serving shape (the kernel on a permuted potential) and a joint over three
+variables; the kernel's device time (a float32 call includes its pot
+split) beside its plain version's, ``library_factored_contract``'s (two
+library products) and one ``torch.einsum``'s, all taken with the host
+running ahead of the card, and the host's own time to queue one call.
 ``--root`` names another checkout of this repository whose package is timed
 instead, so that two versions can be compared on one card in one process
 sequence (parent, change, change, parent).  Needs a CUDA device.
@@ -23,7 +25,9 @@ import sys
 import time
 
 SHAPES = [(64, 2048, 2, 4096), (64, 4096, 1, 4096),    # (R1, R2, C, B)
-          (16, 2048, 2, 4096), (16, 4096, 1, 4096)]    # model shards
+          (16, 2048, 2, 4096), (16, 4096, 1, 4096),    # model shards
+          (2, 2048, 64, 4096), (2, 64, 2048, 4096),    # dw1, dw2
+          (64, 512, 8, 4096)]                          # a joint over 3
 
 
 def device_ms(fn, iters=20, repeats=5, spin_cycles=20_000_000):
@@ -107,6 +111,8 @@ def main() -> int:
                     lambda: fc.reference_factored_contract(pot, w1, w2)),
                 "library_ms": device_ms(
                     lambda: fc.library_factored_contract(pot, w1, w2)),
+                "einsum_ms": device_ms(lambda: torch.einsum(
+                    "rsc,br,bs->bc", pot, w1.to(dtype), w2)),
                 "host_us_per_call": host_us(
                     lambda: fc.factored_masked_contract(pot, w1, w2)),
             }), flush=True)

@@ -256,6 +256,7 @@ def _broken_kernels(monkeypatch):
         raise RuntimeError("factored_contract kernel launch failed: no card")
 
     broken.launches = broken.launches_bf16 = broken.launches_backward = 0
+    broken.splits = 0
     monkeypatch.setattr(fc, "factored_masked_contract", broken)
     monkeypatch.setattr(jax_pc, "factored_masked_contract", broken)
 

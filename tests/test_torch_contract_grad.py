@@ -41,10 +41,10 @@ def backward_contractions(monkeypatch):
     made = []
     inner = fc._contract_on_device
 
-    def counting(pot, w1, w2, backward=False):
+    def counting(pot, w1, w2, backward=False, precision="highest"):
         if backward:
             made.append(tuple(pot.shape))
-        return inner(pot, w1, w2, backward)
+        return inner(pot, w1, w2, backward, precision)
 
     monkeypatch.setattr(fc, "_contract_on_device", counting)
     return made
@@ -108,7 +108,8 @@ def test_needs_input_grad_skips(needs, monkeypatch):
     inner = fc._contract_on_device
     monkeypatch.setattr(
         fc, "_contract_on_device",
-        lambda p, a, b, backward=False: made.append(backward) or inner(p, a, b, backward))
+        lambda p, a, b, backward=False, precision="highest":
+        made.append(backward) or inner(p, a, b, backward, precision))
     out = fc.factored_masked_contract(*leaves)
     wanted = [t for t in leaves if t.requires_grad]
     got = torch.autograd.grad(out, wanted, g)

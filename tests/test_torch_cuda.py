@@ -89,6 +89,106 @@ def test_f32_kernel_at_every_column_count(cuda, N):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize(
+    "R1,R2,C",
+    [(64, 2048, 2), (64, 4096, 1),        # posterior_batch, entropy terms
+     (64, 1024, 4), (64, 512, 8),         # joints over 2 and 3 variables
+     (512, 256, 2), (512, 512, 1),        # E-step forward
+     (2, 2048, 64), (2, 64, 2048),        # dw1, dw2 at the serving shape
+     (1, 4096, 64), (1, 64, 4096),        # dw1, dw2 at C = 1
+     (2, 256, 512), (2, 512, 256)],       # the E-step's backward
+)
+def test_f32_kernel_on_path_shapes_within_2e6(cuda, R1, R2, C):
+    """float32 at "highest" (six bf16 passes on the tensor cores) stays
+    within 2e-6 of max|out| of the plain version at every shape a serving
+    or gradient path hands it, with the potential in the layout the route
+    hands over, and two runs are bitwise equal."""
+    B = 4096
+    g = torch.Generator(device=cuda).manual_seed(R1 * 3 + R2 + C)
+    if fc.tiles_by_n(C):
+        pot = torch.rand((R2, R1, C), generator=g, device=cuda).permute(1, 0, 2)
+    else:
+        pot = torch.rand((R1, R2, C), generator=g, device=cuda)
+    w1 = torch.rand((B, R1), generator=g, device=cuda)
+    w2 = torch.rand((B, R2), generator=g, device=cuda)
+    k1 = fc.factored_masked_contract
+    before = k1.splits
+    got = k1(pot, w1, w2)
+    again = k1(pot, w1, w2)
+    torch.cuda.synchronize()
+    assert k1.splits == before + 2
+    assert _rel_err(got, fc.reference_factored_contract(pot, w1, w2)) <= 2e-6
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R1,R2,C,B", [(64, 2048, 2, 4096), (5, 70, 300, 130),
+                                       (16, 2048, 2, 4096), (3, 37, 33, 130)])
+def test_precision_argument_on_the_card(cuda, R1, R2, C, B):
+    """precision="default" is one bf16 pass: within 2e-2 of max|out| (and
+    exact on the narrow CUDA-core route); bf16 inputs take one pass
+    whatever is asked; any other precision raises."""
+    g = torch.Generator(device=cuda).manual_seed(R2 + C)
+    pot, w1, w2 = (torch.rand(s, generator=g, device=cuda)
+                   for s in ((R1, R2, C), (B, R1), (B, R2)))
+    want = fc.reference_factored_contract(pot, w1, w2)
+    got = fc.factored_masked_contract(pot, w1, w2, precision="default")
+    torch.cuda.synchronize()
+    narrow = fc.tiles_by_n(C) and R1 * C <= fc.FMA_MAX_N
+    assert _rel_err(got, want) <= (1e-5 if narrow else 2e-2)
+    pb, w2b = pot.bfloat16(), w2.bfloat16()
+    assert torch.equal(fc.factored_masked_contract(pb, w1, w2b, "default"),
+                       fc.factored_masked_contract(pb, w1, w2b, "highest"))
+    with pytest.raises(ValueError, match="precision"):
+        fc.factored_masked_contract(pot, w1, w2, precision="high")
+
+
+def kernel_split(pot, B, precision="highest"):
+    """The kernel's split of a float32 pot as the wrapper launches it:
+    (planes [planes, rows, ld] bf16, box exponents int32)."""
+    from junctiontree_tpu_torch.ops.cuda_build import load_library
+
+    R1, R2, C = (int(d) for d in pot.shape)
+    cfg = fc.launch_config(B, R1, R2, C, 132, False, precision=precision)
+    buf, ld, _ = fc._split_pot(load_library(), pot, cfg,
+                               torch.cuda.current_stream().cuda_stream)
+    rows = R2 if cfg["by_n"] else R1 * R2
+    n = cfg["planes"] * rows * ld
+    torch.cuda.synchronize()
+    return (buf[:n].view(cfg["planes"], rows, ld),
+            buf[n:].view(torch.int32), cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "R1,R2,C,layout",
+    [(64, 2048, 2, "rows"), (64, 4096, 1, "rows"), (2, 64, 2048, "perm"),
+     (2, 2048, 64, "perm"), (5, 70, 300, "plain"), (3, 37, 33, "plain"),
+     (40, 50, 2, "plain")],
+)
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_split_matches_plain_version(cuda, R1, R2, C, layout, precision):
+    """The pot split kernel writes the same bits as its plain version
+    (``reference_split_pot``), reading the potential through its strides:
+    the route's [R2, R1, C] rows, a backward pass's permuted view, or a
+    plain [R1, R2, C] tensor; tiny boxes keep their bits."""
+    g = torch.Generator(device=cuda).manual_seed(R1 + R2 + C)
+    if layout == "rows":
+        pot = torch.rand((R2, R1, C), generator=g, device=cuda).permute(1, 0, 2)
+    elif layout == "perm":  # as _contract_grads hands dw2 its potential
+        pot = torch.rand((R2, C, R1), generator=g, device=cuda).permute(2, 0, 1)
+    else:
+        pot = torch.rand((R1, R2, C), generator=g, device=cuda)
+    pot.mul_(torch.where(torch.rand(pot.shape, generator=g, device=cuda)
+                         < 0.1, 1e-36, 1.0))  # in place: the strides stay
+    planes, exps, cfg = kernel_split(pot, 4096, precision)
+    want, want_exps = fc.reference_split_pot(pot, cfg["by_n"], cfg["bk"],
+                                             cfg["planes"])
+    assert torch.equal(exps, want_exps)
+    assert torch.equal(planes, want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("R1,R2,C", [(64, 2048, 2), (64, 4096, 1)])
 def test_bf16_kernel_serving_shapes_within_2e6(cuda, R1, R2, C):
     """At the two serving shapes the bf16 kernel (f32 sums of exact
@@ -110,7 +210,9 @@ def test_bf16_kernel_serving_shapes_within_2e6(cuda, R1, R2, C):
 def test_bf16_padding_count(cuda):
     """bf16 operands reach the Tensor Memory Accelerator as they are on the
     serving shapes (no copy counted), and offset views and odd rows are
-    copied into an aligned buffer (counted); float32 never counts."""
+    copied into an aligned buffer (counted); float32 serving operands are
+    not copied either (pot goes through the split, which reads any
+    strides), and a float32 w2 at an offset is copied and counted."""
     k1 = fc.factored_masked_contract
     for R1, R2, C in ((64, 2048, 2), (64, 4096, 1), (16, 2048, 2)):
         pot = torch.rand((R2, R1, C), device=cuda).to(
@@ -133,6 +235,13 @@ def test_bf16_padding_count(cuda):
     k1(torch.rand((3, 40, 3), device=cuda).to(torch.bfloat16),
        torch.rand((130, 3), device=cuda), w2.clone())  # N = 9, w2 aligned
     assert k1.padded == before + 3
+    fbuf = torch.rand(130 * 40 + 1, device=cuda)
+    pot = torch.rand((40, 40, 2), device=cuda)  # N = 80: the tensor cores
+    w1 = torch.rand((130, 40), device=cuda)
+    k1(pot, w1, fbuf[:-1].view(130, 40))       # aligned: no copy
+    assert k1.padded == before + 3
+    k1(pot, w1, fbuf[1:].view(130, 40))        # one float in: copied
+    assert k1.padded == before + 4
     torch.cuda.synchronize()
 
 
@@ -237,18 +346,22 @@ def test_kernel_is_bitwise_repeatable(cuda, R1, R2, C, B, dtype):
 
 @pytest.mark.cuda
 def test_bf16_kernels_run_on_wgmma_and_tma(cuda):
-    """``cuobjdump -sass`` of the built library: every bf16 kernel (three
-    epilogues) holds HGMMA and UTMALDG instructions, no float32 kernel holds
-    a tensor-core instruction."""
+    """``cuobjdump -sass`` of the built library: every tensor-core kernel,
+    bf16 and float32 at both precisions (three epilogues each, and the
+    pairwise fold of six passes), holds HGMMA
+    and UTMALDG instructions; the narrow float32 kernel (N <= 32, the
+    CUDA-core route the model shards keep), the pot split and the
+    fixed-order sum hold no tensor-core instruction."""
     from junctiontree_tpu_torch.ops import cuda_build
 
     cuda_build.load_library()
     counts = cuda_build.sass_op_counts()
-    assert {"bf16_by_c", "bf16_fold", "bf16_smem", "f32_by_n",
-            "f32_by_c"} <= set(counts)
+    tc_kinds = {src + epi for src in ("bf16", "f32", "f32_default")
+                for epi in ("_by_c", "_fold", "_smem")} | {"f32_fold_pairs"}
+    assert tc_kinds | {"f32_narrow", "split", "other"} == set(counts)
     for kind, ops in counts.items():
         tensor = sum(ops[op] for op in cuda_build.TENSOR_CORE_OPS)
-        if kind.startswith("bf16"):
+        if kind in tc_kinds:
             assert ops["HGMMA"] > 0 and ops["UTMALDG"] > 0, (kind, ops)
         else:
             assert tensor == 0 and ops["UTMALDG"] == 0, (kind, ops)
@@ -988,8 +1101,9 @@ def test_tp_on_one_card_launches_kernel_per_shard(cuda, dtype, monkeypatch):
     the kernel once per model shard, 4 times the unsharded engine's
     launches, and the results equal the unsharded engine's (f32 1e-5, bf16
     within 2e-2 of it) with no gathered contraction.  A float32 shard's
-    launch takes the narrowest column tile that holds its R1*C columns; a
-    bf16 one reads all its columns in one tile."""
+    launch of at most 32 columns takes the narrow CUDA-core kernel's
+    narrowest column tile that holds them; any other launch reads all its
+    columns (up to 128) in one tile."""
     from junctiontree_tpu_torch.parallel import make_mesh
 
     monkeypatch.setattr(DEFAULT, "big_clique_min_states", 1 << 8)
@@ -1017,9 +1131,11 @@ def test_tp_on_one_card_launches_kernel_per_shard(cuda, dtype, monkeypatch):
         (post, logz), n = _launches_of(lambda: eng.posterior_batch(masks))
         assert n0 > 0 and n == 4 * n0 == len(configs)
         for R1, C, cfg in configs:
-            if dtype == torch.float32 and cfg["by_n"]:
-                want = next((w for w in (16, 32) if R1 * C <= w), 64)
-                assert cfg["bn"] == want and cfg["bm"] * cfg["bn"] == 8192
+            if dtype == torch.float32 and cfg["by_n"] and R1 * C <= 32:
+                # the narrow CUDA-core kernel
+                want = next(w for w in (16, 32) if R1 * C <= w)
+                assert cfg["src"] == "fma" and cfg["bn"] == want
+                assert cfg["bm"] * cfg["bn"] == 8192
             elif cfg["by_n"]:
                 assert cfg["n_n"] == 1 or R1 * C > 128
         assert any(cfg["bn"] < 64 for _, _, cfg in configs) == (
