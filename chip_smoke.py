@@ -133,9 +133,12 @@ def kernel_bound_ms(R1, R2, C, B, bf16):
 
 def split_line(pot, w1, w2):
     """The float32 pre-pass of one kernel call with these operands: its
-    launches a call (0 for bf16 and for the narrow CUDA-core route), its
-    device time alone, and its planes held bitwise against the plain
-    version (``reference_split_pot``)."""
+    launches a call on a tensor handed in (0 for bf16 and for the narrow
+    CUDA-core route; a standing potential's is kept after its first), its
+    device time alone beside its plain version's and its bound (the bytes
+    of pot read once and of the planes and exponents written once), and
+    its planes held bitwise against the plain version
+    (``reference_split_pot``)."""
     import torch
 
     from junctiontree_tpu_torch.ops import factored_contract as fc
@@ -162,8 +165,53 @@ def split_line(pot, w1, w2):
             f"the pot split disagrees with its plain version at {R1, R2, C}")
     ms = device_ms(lambda: fc._split_pot(lib, pot, cfg, stream))
     fc.factored_masked_contract.splits = before  # not the caller's work
+    plain = device_ms(lambda: fc.reference_split_pot(
+        pot, cfg["by_n"], cfg["bk"], cfg["planes"]))
+    elems, boxes, _ = fc._operand_elems(R1, R2, C, cfg)
+    bound = (4 * R1 * R2 * C + 2 * elems + 4 * boxes) / HBM_BYTES_PER_S * 1e3
     return {"split_launches_per_call": 1, "split_ms": ms,
+            "split_plain_ms": plain, "split_bound_ms": bound,
             "split_matches_plain": True, "route": cfg["src"]}
+
+
+# one H100 SXM's memory rate (the data sheet's 3.35 TB/s)
+HBM_BYTES_PER_S = 3.35e12
+
+
+def in_kernel_sum(pot, w1, w2, got):
+    """How many r2 partials a tile of one call with these operands leaves
+    (``nparts``, with the card's own cluster slots), and where there are
+    several, that 19 more runs and 5 on each of two streams at once give
+    ``got``'s bits: the last block of each tile adds them in a fixed order,
+    whichever block that is."""
+    import functools
+
+    import torch
+
+    from junctiontree_tpu_torch.ops import factored_contract as fc
+
+    R1, R2, C = (int(d) for d in pot.shape)
+    B = int(w1.shape[0])
+    bf16 = torch.bfloat16 in {pot.dtype, w1.dtype, w2.dtype}
+    src = fc.source(bf16, "highest", R1 * C if fc.tiles_by_n(C) else None)
+    cfg = fc.launch_config(B, R1, R2, C, fc._sm_count(pot.device), bf16,
+                           functools.partial(fc._cluster_slots, pot.device,
+                                             src))
+    line = {"nparts": cfg["nparts"], "nsplit": cfg["nsplit"],
+            "kparts": cfg["kparts"]}
+    if cfg["nparts"] == 1:
+        return line
+    runs = [fc.factored_masked_contract(pot, w1, w2) for _ in range(19)]
+    torch.cuda.synchronize()
+    for st in (torch.cuda.Stream(), torch.cuda.Stream()):
+        with torch.cuda.stream(st):
+            runs += [fc.factored_masked_contract(pot, w1, w2)
+                     for _ in range(5)]
+    torch.cuda.synchronize()
+    require(all(torch.equal(got, r) for r in runs),
+            f"the in-kernel sum differs between runs at {R1, R2, C, B}")
+    line["bitwise_repeatable_runs"] = 1 + len(runs)
+    return line
 
 
 def step_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -185,7 +233,9 @@ def step_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 def profile_step(fn, steps: int = 5):
     """Device time by kernel over ``steps`` calls of ``fn`` (torch.profiler):
     (device-busy ms per step, kernel launches per step, the eight kernels
-    with the most time as [name, launches per step, ms per step])."""
+    with the most time as [name, launches per step, ms per step]).
+    ``profile_step.copies`` is then the launches per step of PyTorch's copy
+    kernels (names holding "copy")."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -199,8 +249,25 @@ def profile_step(fn, steps: int = 5):
     rows = [(e.key, e.count / steps, e.device_time_total / steps / 1e3)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     rows.sort(key=lambda r: -r[2])
+    profile_step.copies = sum(n for k, n, _ in rows if "copy" in k.lower())
     return (sum(r[2] for r in rows), sum(r[1] for r in rows),
             [[k[:60], n, ms] for k, n, ms in rows[:8]])
+
+
+def kept_counts(fn):
+    """What one ``fn()`` did about the pot operands the kernel reads:
+    float32 splits made, kept operands found (``kept.hits``) and made."""
+    import torch
+
+    from junctiontree_tpu_torch.ops import factored_contract as fc
+
+    k1 = fc.factored_masked_contract
+    before = (k1.splits, fc.kept.hits, fc.kept.misses)
+    fn()
+    torch.cuda.synchronize()
+    return {"splits": k1.splits - before[0],
+            "kept_hits": fc.kept.hits - before[1],
+            "kept_made": fc.kept.misses - before[2]}
 
 
 def big_clique_model():
@@ -316,6 +383,10 @@ def phase_bf16(dev, tree, values, masks, f32_post, f32_logz,
             "bf16 serving: outputs are not float32")
     require(all(p.dtype == torch.bfloat16 for p in eng._program_pots()),
             "bf16 serving: potentials are not stored in bfloat16")
+    require(k1.splits == 0, "bf16 serving split a potential")
+    steady = kept_counts(lambda: eng.posterior_batch(masks))
+    require(steady["kept_hits"] == launches and steady["kept_made"] == 0,
+            f"a steady bf16 posterior_batch: {steady}")
     worst = check_close(post, logz, f32_post, f32_logz, len(post),
                         "bf16 serving", rtol=0, atol=0.02, logz_atol=0.05)
     require(bool(torch.isneginf(logz[0])) and all(
@@ -328,8 +399,12 @@ def phase_bf16(dev, tree, values, masks, f32_post, f32_logz,
         busy, n_kernels, top = profile_step(lambda: eng.posterior_batch(masks))
         emit({"phase": "profile", "model": "big_clique_bf16", "step_ms": t,
               "device_busy_ms_per_step": busy,
-              "kernels_per_step": n_kernels, "top_kernels": top})
+              "kernels_per_step": n_kernels,
+              "copy_kernels_per_step": profile_step.copies,
+              "top_kernels": top})
     emit({"phase": "bf16_serving", "B": B, "kernel_launches": launches,
+          "steady_call": steady,
+          "kept_layouts": eng.describe()["kept_layouts"],
           "kernel_launches_bf16_inputs": launches_bf16, "step_ms": t,
           "f32_step_ms": f32_step_ms, "queries_per_s": B / t * 1e3,
           "peak_mem_bytes": peak, "f32_peak_mem_bytes": f32_peak,
@@ -835,7 +910,13 @@ def phase_entropy_joint(dev, big, hail, path_shapes, profile):
         np.testing.assert_allclose(z.double().cpu().numpy(), want_z.cpu().numpy(),
                                    rtol=1e-4, atol=1e-30, err_msg=name + " Z")
         key = name.replace("_batch", "").replace(" over ", "")
+        # steady: entropy's one derived tensor (pot log pot) is split on
+        # every call, the standing potential's layouts are kept
+        steady = kept_counts(lambda: run(eng))
+        require(steady["splits"] <= (1 if name == "entropy_batch" else 0),
+                f"{name}: a steady call made {steady}")
         line.update({
+            key + "_steady_call": steady,
             key + "_kernel_launches": launched[name],
             key + "_route_calls_on_meta": len(path_shapes[name]),
             key + "_step_ms": step_ms(lambda: run(eng)),
@@ -846,7 +927,9 @@ def phase_entropy_joint(dev, big, hail, path_shapes, profile):
             busy, n_kernels, top = profile_step(lambda: run(eng))
             line.update({key + "_device_busy_ms_per_step": busy,
                          key + "_kernels_per_step": n_kernels,
+                         key + "_copy_kernels_per_step": profile_step.copies,
                          key + "_top_kernels": top[:4]})
+    line["kept_layouts"] = eng.describe()["kept_layouts"]
     del ref
 
     # hailfinder_like, B = 128: the two variables whose Steiner subtree is
@@ -1066,8 +1149,16 @@ def phase_incremental(dev, hail, tailed):
     del t64, p64
     t_td = step_ms(lambda: tsess.query(tupd, tq))
     t_tf = step_ms(lambda: teng.posterior_batch(tmerged, mode="general"))
+    # a steady delta: the big clique at the root is multiplied by the tails'
+    # unbatched messages on every call (a new tensor, split on every call
+    # and handed over as a plain tensor: nothing is kept for it), and what
+    # is kept for a standing potential was made on the first call
+    steady = kept_counts(lambda: tsess.query(tupd, tq))
+    require(steady["kept_made"] == 0,
+            f"a steady session delta made {steady}")
     root = tplan.tree.root
     line.update(
+        tailed_delta_steady_call=steady,
         tailed_model="big clique + 18 tails", tailed_B=Bt,
         tailed_cliques=tplan.tri.num_cliques,
         tailed_root_is_the_big_clique=len(tplan.clique_vars[root]) == 18,
@@ -1151,6 +1242,7 @@ def phase_surgery(dev, big, hail):
 LEARN_BIG = "fit_mle_missing step (big clique)"
 LEARN_FWD = "expected_counts forward (tailed big clique)"
 LEARN_BWD = "expected_counts backward (tailed big clique)"
+LEARN_PATHS = (LEARN_BIG, LEARN_FWD, LEARN_BWD)
 
 
 def missing_data(plan, values, N, hidden, seed, dev):
@@ -1896,16 +1988,21 @@ def peak_rise(fn):
     return out, peak - base
 
 
-def phase_memory(dev, hail):
+def phase_memory(dev, hail, big):
     """The memory estimates against measured peaks under the default 8 GiB
     budget: ``max_feasible_batch`` for hailfinder_like's ``posterior_batch``
-    and tree-MAP (the call's peak rise plus the standing potentials within
-    the budget at the returned B, above it at 2B), and the cutset engine's
-    chunks at B = 1024 (peak rise within 1.25 x its budget)."""
+    and tree-MAP (the call's peak rise plus the standing potentials, and
+    what the card keeps beside them for the kernel, within the budget at
+    the returned B, above it at 2B), the kept bytes of the big clique's
+    engine after a call in float32 and bfloat16 within their bound, also
+    over evidence on 1, 2 and 12 of its variables in turn (splits and kept
+    bytes of each call), and the cutset engine's chunks at B = 1024 (peak
+    rise within 1.25 x its budget)."""
     import numpy as np
     import torch
 
     import junctiontree_tpu_torch as jt
+    from junctiontree_tpu_torch.ops import factored_contract as fc
 
     budget = 8 << 30
     tree, values, labels = hail["tree"], hail["values"], hail["labels"]
@@ -1917,7 +2014,8 @@ def phase_memory(dev, hail):
     engines = {"posterior": hail["eng"],
                "map": tree.engine("max_product", device=dev).set_potentials(values)}
     for task, eng in engines.items():
-        held = 4 * plan.stats()["total_clique_states"]
+        kept = eng._kept_bytes_bound()
+        held = 4 * plan.stats()["total_clique_states"] + kept
         B = eng.max_feasible_batch(budget, task=task)
         rises = []
         for b in (B, 2 * B):
@@ -1936,11 +2034,55 @@ def phase_memory(dev, hail):
                 "budget: the estimate is not the largest power of two")
         reckoned = 4 * (eng.ROW_CLIQUES[task] * plan.stats()["max_clique_states"]
                         + 2 * seps)
-        line.update({f"{task}_B": B, f"{task}_bytes_at_B": rises[0] + held,
+        line.update({f"{task}_B": B, f"{task}_kept_bytes_bound": kept,
+                     f"{task}_bytes_at_B": rises[0] + held,
                      f"{task}_bytes_at_2B": rises[1] + held,
                      f"{task}_measured_bytes_per_row": (rises[1] - rises[0]) / B,
                      f"{task}_reckoned_bytes_per_row": reckoned})
     del engines
+    torch.cuda.empty_cache()
+    # the big clique: what its engine keeps after one posterior_batch (its
+    # 19 layouts), within what max_feasible_batch counts; then evidence on
+    # 1 and 2 of its variables (bf16 rows of few columns pad most) and back,
+    # twice: float32 splits and kept bytes of each call
+    names = big["names"]
+    few = [jt.batch_masks_sparse(big["tree"].plan, jt.random_evidence_batch(
+        big["tree"].plan, 256, obs, seed=12)) for obs in (names[5:6], names[16:])]
+    for dtype in (torch.float32, torch.bfloat16):
+        eng = big["tree"].engine(device=dev, dtype=dtype).set_potentials(
+            big["values"])
+        before = torch.cuda.memory_allocated()
+        eng.posterior_batch(big["masks"])
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - before
+        now, bound = eng.describe()["kept_layouts"], eng._kept_bytes_bound()
+        require(0 < now["bytes"] <= bound and now["bytes"] <= grown,
+                f"big clique {dtype}: kept {now}, bound {bound}, the call "
+                f"left {grown} bytes allocated")
+        key = "big_clique_" + str(dtype).split(".")[-1]
+        line.update({key + "_kept_layouts": now["layouts"],
+                     key + "_kept_bytes": now["bytes"],
+                     key + "_kept_bytes_bound": bound,
+                     key + "_left_allocated_by_first_call": grown,
+                     key + "_max_feasible_batch": eng.max_feasible_batch(budget)})
+        # bf16 rows of R1*C < 8 columns (evidence on 1 or 2 variables) are
+        # too short for the Tensor Memory Accelerator: each is copied into
+        # padded rows when its layout is made (up to 8x the potential's
+        # bytes, which the bound counts); those copies are counted here,
+        # apart from phase tma_copies, which holds the serving phases'
+        # evidence patterns to none
+        calls, padded = [], fc.factored_masked_contract.padded
+        for m in few + [big["masks"]] + few + [big["masks"]]:
+            made = kept_counts(lambda: eng.posterior_batch(m))
+            kept_now = eng.describe()["kept_layouts"]
+            require(kept_now["layouts"] <= 19 and kept_now["bytes"] <= bound,
+                    f"big clique {dtype}: kept {kept_now}, bound {bound}")
+            calls.append([made["splits"], made["kept_made"], kept_now["bytes"]])
+        line[key + "_patterns_1_2_12_var_splits_made_kept_bytes"] = calls
+        line[key + "_patterns_padded_operands"] = (
+            fc.factored_masked_contract.padded - padded)
+        fc.factored_masked_contract.padded = padded
+        del eng
     torch.cuda.empty_cache()
     # the cutset engine at B = 1024 under its default 8 GiB chunk budget
     hf, hs, hv = hail["factors"], hail["sizes"], hail["values"]
@@ -2152,6 +2294,8 @@ def phase_parallel(dev, main_shapes, profile, device_ms):
         err_f64 = check_close(post, logz, ref_post, ref_logz, len(post),
                               f"TP {label} vs float64", rows=rows, **F64_LIMITS)
         tp[label] = dict(kernel_launches=launches,
+                         steady_call=kept_counts(
+                             lambda: eng.posterior_batch(masks)),
                          max_abs_err_vs_unsharded=err_f32,
                          max_abs_err_vs_f64=err_f64,
                          step_ms=step_ms(lambda: eng.posterior_batch(masks), iters=5))
@@ -2384,11 +2528,12 @@ def run() -> int:
     mma = cuda_build.tensor_core_op_counts()
     # the tensor-core kernels (bf16, and float32 at "highest" and "default",
     # three epilogues each) run wgmma (HGMMA) fed by the Tensor Memory
-    # Accelerator (UTMALDG); the narrow float32 kernel (N <= 32), the pot
-    # split and the fixed-order sum run no tensor-core operation
+    # Accelerator (UTMALDG); the narrow float32 kernel (N <= 32) and the pot
+    # split run no tensor-core operation; no other kernel is left (the
+    # contraction kernels add their own r2 partials)
     tc_kinds = {src + epi for src in ("bf16", "f32", "f32_default")
                 for epi in ("_by_c", "_fold", "_smem")} | {"f32_fold_pairs"}
-    require(tc_kinds | {"f32_narrow", "split", "other"} == set(sass),
+    require(tc_kinds | {"f32_narrow", "split"} == set(sass),
             f"unexpected kernels in the library: {sorted(sass)}")
     require(all(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0
                 for k, ops in sass.items() if k in tc_kinds),
@@ -2474,6 +2619,9 @@ def run() -> int:
     totals = {(bf16, k): dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
                               bound_ms=0.0, bound_ops_ms=0.0, max_abs_err=0.0)
               for bf16 in (False, True) for k in path_shapes}
+    # the float32 split of the engine's potential, one per routed call of
+    # an engine's first posterior_batch (kept after it)
+    split_tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
     for shape in list(per_call) + edge_shapes:
         R1, R2, C, Bk = shape
         serving = shape in per_call
@@ -2507,6 +2655,21 @@ def run() -> int:
                 again = fc.factored_masked_contract(pot, w1, w2)
                 require(torch.equal(got, again), f"two runs differ at {shape}")
                 line.update(split_line(pot, w1, w2))
+                line.update(in_kernel_sum(pot, w1, w2, got))
+                n_main = per_call[shape].get("posterior_batch", 0)
+                if "split_ms" in line and n_main:
+                    for key in split_tot:
+                        split_tot[key] += line["split_" + key] * n_main
+                # the operand kept as for a standing potential: what a
+                # serving call reads after its engine's first
+                fc.standing(pot, 1)
+                lay = fc.StandingLayout(pot, [0], [1], [2], fc.tiles_by_n(C))
+                require(torch.equal(fc.factored_masked_contract(lay, w1, w2),
+                                    got), f"kept operand differs at {shape}")
+                kept = device_ms(lambda: fc.factored_masked_contract(
+                    lay, w1, w2))
+                line.update(kept_ms=kept, kept_host_us_per_call=host_us(
+                    lambda: fc.factored_masked_contract(lay, w1, w2)))
                 k = device_ms(lambda: fc.factored_masked_contract(pot, w1, w2))
                 p = device_ms(lambda: fc.reference_factored_contract(pot, w1, w2))
                 # the one PyTorch call for the same function (TF32 is off);
@@ -2524,7 +2687,9 @@ def run() -> int:
                     calls_per_step=per_call[shape])
                 for path, n in per_call[shape].items():
                     tot = totals[bf16, path]
-                    tot["ms"] += k * n
+                    # serving paths read the kept operand; the learning
+                    # paths' potentials need a gradient: split every call
+                    tot["ms"] += (k if path in LEARN_PATHS else kept) * n
                     tot["plain_ms"] += p * n
                     tot["library_ms"] += lib * n
                     tot["bound_ms"] += bound * n
@@ -2556,6 +2721,7 @@ def run() -> int:
                     f"two runs differ at shard {R1, R2, C, Bk} {dtype}")
             cfg = fc.launch_config(Bk, R1, R2, C, torch.cuda.get_device_properties(
                 dev).multi_processor_count, bf16)
+            sums = in_kernel_sum(pot, w1, w2, got)
             k = device_ms(lambda: fc.factored_masked_contract(pot, w1, w2))
             bound, by = kernel_bound_ms(R1, R2, C, Bk, bf16)
             emit({"phase": "kernel_vs_plain", "shard_of": [R1 * 4, R2, C, Bk],
@@ -2570,7 +2736,7 @@ def run() -> int:
                   "library_factored_contract_ms": device_ms(
                       lambda: fc.library_factored_contract(pot, w1, w2)),
                   "bound_ms": bound, "bound_by": by,
-                  "share_of_bound": bound / k})
+                  "share_of_bound": bound / k, **sums})
 
     # the serving floor 1e-38 is subnormal in f32 and bf16: it must not be
     # flushed, and exact zeros must stay exact zeros
@@ -2617,7 +2783,7 @@ def run() -> int:
     phase_precision(dev, hail)
     phase_native_compile()
     phase_cli(dev, big)
-    phase_memory(dev, hail)
+    phase_memory(dev, hail, big)
     torch.cuda.empty_cache()
 
     # -- 4. big-clique serving (the main path) -------------------------------
@@ -2631,6 +2797,18 @@ def run() -> int:
             f"{launches} float32 kernel launches but {splits} pot splits")
     require(launches == len(main_shapes),
             f"{launches} kernel launches, expected {len(main_shapes)}")
+    # later calls read the splits kept beside the engine's potential
+    steady = kept_counts(lambda: eng.posterior_batch(masks))
+    require(steady["splits"] == 0 and steady["kept_hits"] == launches,
+            f"a steady float32 posterior_batch: {steady}")
+    # under torch.inference_mode(), the usual way to serve: the same bits
+    with torch.inference_mode():
+        inf_post, inf_logz = eng.posterior_batch(masks)
+    require(torch.equal(inf_logz, logz) and all(
+        torch.equal(a, b) for a, b in zip(inf_post, post)),
+        "posterior_batch under inference mode differs")
+    del inf_post, inf_logz
+    kept_now = eng.describe()["kept_layouts"]
     rows = 64
     ref = tree.engine(device=dev, dtype=torch.float64).set_potentials(values)
     ref_post, ref_logz = ref.posterior_batch(
@@ -2646,10 +2824,14 @@ def run() -> int:
         busy, n_kernels, top = profile_step(lambda: eng.posterior_batch(masks))
         emit({"phase": "profile", "model": "big_clique", "step_ms": t_big,
               "device_busy_ms_per_step": busy,
-              "kernels_per_step": n_kernels, "top_kernels": top})
+              "kernels_per_step": n_kernels,
+              "copy_kernels_per_step": profile_step.copies,
+              "top_kernels": top})
     emit({"phase": "big_clique_serving", "B": B, "cliques": plan.tri.num_cliques,
           "max_clique_states": plan.stats()["max_clique_states"],
           "kernel_launches": launches, "pot_splits": splits,
+          "steady_call": steady, "kept_layouts": kept_now,
+          "kept_bytes_bound": eng._kept_bytes_bound(),
           "step_ms": t_big,
           "queries_per_s": B / t_big * 1e3, "peak_mem_bytes": peak_big,
           "max_abs_err_vs_f64": worst, "rows_checked": rows})
@@ -2775,6 +2957,17 @@ def run() -> int:
         "library_ms": tp_tot["library_ms"],
         "per": "one sharded big-clique posterior_batch, 4 model shards, "
                "float32 (%d launches)" % tp_launches,
+    }, {
+        "name": "split_pot_kernel (float32 pot into bf16 planes)",
+        "route": "cuda",
+        "source": "junctiontree_tpu_torch/csrc/factored_contract.cu",
+        "replaces": "junctiontree_tpu/ops/pallas_contract.py:286",
+        "launches": splits, "max_abs_err": 0.0,
+        "ms": split_tot["ms"], "plain_ms": split_tot["plain_ms"],
+        "bound_ms": split_tot["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "per": "an engine's first big-clique posterior_batch, float32 (%d "
+               "launches; later calls read the kept planes)" % splits,
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

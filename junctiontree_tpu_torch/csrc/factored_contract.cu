@@ -63,9 +63,11 @@
 //     thread reads its A fragments (the wgmma m64k16 register layout) from
 //     the swizzled f32 tile, splits them in registers (cvt.rn.bf16x2.f32
 //     and two subtractions) and issues register-A wgmma; the split w2 never
-//     goes to device memory.  pot (about 3% of the bytes) is split once per
-//     call by split_pot_kernel into three bf16 planes in the layouts the
-//     tensor maps read.
+//     goes to device memory.  pot (about 3% of the bytes) is split by
+//     split_pot_kernel into three bf16 planes in the layouts the tensor
+//     maps read: once per call for a tensor handed in, once per layout for
+//     the standing potential of a serving path (the wrapper keeps the
+//     planes beside it).
 //   * Subnormals.  The serving floor 1e-38 is subnormal in f32 and in bf16,
 //     where it holds about 7 bits: a plain split of such a row would miss by
 //     4e-3.  So each stage scales each row's 32 values by an exact power of
@@ -84,9 +86,13 @@
 //     cudaOccupancyMaxActiveClusters: 3 on an H100 at B = 4096).  Each
 //     block writes its [BM, C] partial to its shared memory, and after a
 //     cluster barrier each block adds a slice of rows over the cluster's
-//     blocks in rank order through distributed shared memory: one launch,
-//     no atomics, bitwise repeatable.  Only several column tiles of the "n"
-//     tiling (N > 128) leave partials for split_sum_kernel.
+//     blocks in rank order through distributed shared memory, bitwise
+//     repeatable.  Where a tile's r2 takes several clusters (f32), or the
+//     "n" tiling several column tiles (N > 128), each leaves a partial in
+//     device memory; each block then counts itself in at its output tile
+//     (one atomic increment), and the last to arrive adds the tile's
+//     partials in a fixed order and resets the counter: still one launch,
+//     and the same bits whichever block comes last.
 //   * For C in {1, 2, 4, 8} (every serving shape) w1[b, r1(n)] is loaded
 //     into registers before the loop and folded into each stage's products
 //     at once, so the epilogue waits on no load; other C, and six passes
@@ -102,8 +108,8 @@
 //     fold run on the same warps as the products, and the two warpgroups
 //     take turns at the tensor cores (named barriers) so that one's split
 //     overlaps the other's products; about 60% of the six passes' peak.
-//     Then fixed costs a call: the pot split's launch, the prologue, and
-//     the second kernel that adds the r2 parts.
+//     Then fixed costs a call: the prologue, the epilogue's sums.  The pot
+//     split of a standing potential is made once and kept by the wrapper.
 //   * TMA needs 16-byte aligned addresses and row strides: the wrapper
 //     copies other w2 operands into an aligned, zero-padded buffer
 //     (counted); the pot planes are aligned by construction.
@@ -139,15 +145,102 @@ cudaError_t allow_smem(int bytes) {
   return e;
 }
 
-// out[i] = sum_z ws[z, i], z in order: the fixed-order sum of the partials.
-__global__ void split_sum_kernel(const float* __restrict__ ws,
-                                 float* __restrict__ out, int64_t n,
-                                 int nparts) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int z = 0; z < nparts; ++z) s += ws[(int64_t)z * n + i];
-  out[i] = s;
+// Named barrier `id` of `n` threads: wait for all.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// The r2 partials of one output tile, added inside the launch.  Every block
+// that wrote its piece of the tile's partials into ws ([nparts, B, C])
+// arrives at the tile's counter; the last of `arrivals` blocks adds the
+// tile's nparts partials (rows [b0, b0 + rows), columns [c0, c0 + W)) in z
+// order from 0.f, as a plain fixed-order sum would, writes them to out and
+// sets the counter back to 0 for the next launch on its stream.  So the
+// bits do not depend on which block comes last.  The threads tid <
+// nthreads of the block take part (named barrier 1); a block that is not
+// the last returns at once.  The sum is the launch's tail, so it keeps
+// loads in flight: four float4 (or four floats) a thread at once, each
+// z's loads issued together.  Not inlined, so that the contraction
+// kernels' main loops keep the registers and code they had without it.
+__device__ __noinline__ void add_parts_if_last(
+    const float* __restrict__ ws, float* __restrict__ out,
+    int* __restrict__ counter, int arrivals, int nparts, int64_t B,
+    int64_t C, int64_t b0, int rows, int64_t c0, int W, int tid,
+    int nthreads) {
+  __shared__ int last;
+  // every thread's partial is written; one thread publishes them all (the
+  // barrier orders them before its fence, which is cumulative) and counts
+  // the block in, and if it is the last, its second fence orders the
+  // others' writes before the block's reads
+  bar_sync(1, nthreads);
+  if (tid == 0) {
+    __threadfence();
+    last = atomicAdd(counter, 1) == arrivals - 1;
+    if (last) __threadfence();
+  }
+  bar_sync(1, nthreads);
+  if (!last) return;
+  const int64_t n = B * C;
+  const int count = (int)imin(rows, B - b0) * W;  // elements of the tile
+  // element e of the tile lies at at(e); whole rows are one range
+  const bool flat = W == C;
+  const int64_t base = b0 * C + c0;
+  auto at = [&](int e) -> int64_t {
+    return flat ? base + e : base + (int64_t)(e / W) * C + e % W;
+  };
+  constexpr int U = 4;  // outputs (float4 or float) a thread has in flight
+  // float4 where four neighbouring elements are neighbours in memory, in
+  // every partial (16-byte aligned: n a multiple of 4)
+  const bool vec = n % 4 == 0 &&
+                   (flat ? base % 4 == 0 : (C % 4 | c0 % 4 | W % 4) == 0);
+  const int nq = vec ? count / 4 : 0;
+  for (int q0 = tid; q0 < nq; q0 += U * nthreads) {
+    float4 sum[U];
+    int64_t i[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      sum[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      const int q = q0 + u * nthreads;
+      i[u] = q < nq ? at(4 * q) : -1;
+    }
+#pragma unroll 8
+    for (int z = 0; z < nparts; ++z) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (i[u] < 0) continue;
+        const float4 v =
+            __ldcg(reinterpret_cast<const float4*>(ws + z * n + i[u]));
+        sum[u].x += v.x;
+        sum[u].y += v.y;
+        sum[u].z += v.z;
+        sum[u].w += v.w;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (i[u] >= 0) *reinterpret_cast<float4*>(out + i[u]) = sum[u];
+  }
+  // the rest one float at a time (all of it where float4 does not fit)
+  for (int e0 = 4 * nq + tid; e0 < count; e0 += U * nthreads) {
+    float sum[U];
+    int64_t i[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      sum[u] = 0.f;
+      const int e = e0 + u * nthreads;
+      i[u] = e < count ? at(e) : -1;
+    }
+#pragma unroll 8
+    for (int z = 0; z < nparts; ++z) {
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (i[u] >= 0) sum[u] += __ldcg(ws + z * n + i[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (i[u] >= 0) out[i[u]] = sum[u];
+  }
+  if (tid == 0) *counter = 0;
 }
 
 // ===========================================================================
@@ -359,16 +452,20 @@ __device__ __forceinline__ void main_loop(float (&acc)[64],
 }
 
 // Blocks: blockIdx.x = split * n_b + row tile; columns n = (r1, c) of pot
-// stored [R2, R1*C], all N <= BN of them in one tile; the block's [BM, C]
-// partial goes to dst[split] ([nsplit, B, C]).
+// stored [R2, R1*C], all N <= BN of them in one tile.  With nsplit = 1 the
+// block writes its [BM, C] rows of out; else its partial goes to dst[split]
+// ([nsplit, B, C]) and the last block of the row tile adds the nsplit
+// partials into out (counters[row tile], add_parts_if_last).
 template <int BN>
 __global__ void __launch_bounds__(NT, 2)
 factored_contract_fma_kernel(const float* __restrict__ pot,
                              const float* __restrict__ w1,
                              const float* __restrict__ w2,
-                             float* __restrict__ dst, int64_t B, int64_t R1,
-                             int64_t R2, int64_t C, int n_b,
-                             int64_t k_per_split, int vec_a, int vec_b) {
+                             float* __restrict__ dst, float* __restrict__ out,
+                             int* __restrict__ counters, int64_t B,
+                             int64_t R1, int64_t R2, int64_t C, int n_b,
+                             int nsplit, int64_t k_per_split, int vec_a,
+                             int vec_b) {
   using S = Shape<BN>;
   using Fr = Frag<BN>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -427,19 +524,24 @@ factored_contract_fma_kernel(const float* __restrict__ pot,
       out_row[c] = s;
     }
   }
+  if (nsplit > 1)
+    add_parts_if_last(dst, out, counters + blockIdx.x % n_b, nsplit, nsplit,
+                      B, C, b0, S::BM, 0, (int)C, tid, NT);
 }
 
 template <int BN>
 cudaError_t launch_fma(const float* pot, const float* w1, const float* w2,
-                       float* dst, int64_t B, int64_t R1, int64_t R2,
-                       int64_t C, int n_b, int nsplit, int64_t k_per_split,
-                       int vec_a, int vec_b, cudaStream_t stream) {
+                       float* dst, float* out, int* counters, int64_t B,
+                       int64_t R1, int64_t R2, int64_t C, int n_b, int nsplit,
+                       int64_t k_per_split, int vec_a, int vec_b,
+                       cudaStream_t stream) {
   constexpr int bytes = Shape<BN>::BYTES;
   cudaError_t e = allow_smem<factored_contract_fma_kernel<BN>>(bytes);
   if (e != cudaSuccess) return e;
   factored_contract_fma_kernel<BN><<<(unsigned)((int64_t)n_b * nsplit), NT,
                                      bytes, stream>>>(
-      pot, w1, w2, dst, B, R1, R2, C, n_b, k_per_split, vec_a, vec_b);
+      pot, w1, w2, dst, out, counters, B, R1, R2, C, n_b, nsplit,
+      k_per_split, vec_a, vec_b);
   return cudaGetLastError();
 }
 
@@ -614,10 +716,8 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// Named barrier `id` of `n` threads: wait for all, or arrive only.
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
+// Named barrier `id` of `n` threads: arrive without waiting (bar_sync,
+// above, waits).
 __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
@@ -796,8 +896,13 @@ __device__ __forceinline__ constexpr int pass_b(int ps) {
 // goes to partial part * n_n + column tile of dst ([kparts * n_n, B, C]).
 // "c" tiling: columns c of the pot map [planes * R1, R2, C], r1 looped
 // here; a cluster's [BM, 64] sum goes to its columns of partial `part` of
-// dst ([kparts, B, C]).  pot_exp (f32): the exponent each pot box of a
-// stage was scaled by (jt_split_pot), undone on the stage's sums.
+// dst ([kparts, B, C]).  With nparts (kparts * n_n, or kparts) = 1, dst is
+// out; else the last block of an output tile (a row tile in the "n"
+// tiling, whose column tiles all fold into the same columns; a row and
+// column tile in the "c" tiling) adds the tile's partials into out in a
+// fixed order (add_parts_if_last, counters[tile]).  pot_exp (f32): the
+// exponent each pot box of a stage was scaled by (jt_split_pot), undone on
+// the stage's sums.
 //
 // Roles: warps 0-7 are two consumer warpgroups, warps 8-11 the producer
 // warpgroup (one thread issues the loads), which gives its registers to the
@@ -811,7 +916,8 @@ __global__ void __launch_bounds__(NT, 1)
 factored_contract_tc_kernel(const __grid_constant__ CUtensorMap map_w2,
                             const __grid_constant__ CUtensorMap map_pot,
                             const float* __restrict__ w1,
-                            float* __restrict__ dst,
+                            float* __restrict__ dst, float* __restrict__ out,
+                            int* __restrict__ counters,
                             const int* __restrict__ pot_exp, int B,
                             int R1, int R2, int C, int n_b, int n_n,
                             int nsplit, int kparts) {
@@ -851,7 +957,7 @@ factored_contract_tc_kernel(const __grid_constant__ CUtensorMap map_w2,
   const int n_iter = nk * (BY_N ? 1 : R1);
   // the block's cluster writes partial part * n_n + column tile ("n") or
   // part ("c") of dst
-  float* const out =
+  float* const mine =
       dst + (int64_t)(BY_N ? part_id * n_n + n0 / BN : part_id) * B * C;
 
   if (tid == 0) {
@@ -1102,7 +1208,7 @@ factored_contract_tc_kernel(const __grid_constant__ CUtensorMap map_w2,
             const int row = row0 + 8 * ((i / 2) % 2);
             const int col = 8 * (i / 4) + 2 * (lane % 4) + i % 2;
             if (b0 + row < B && n0 + col < C)
-              out[(int64_t)(b0 + row) * C + n0 + col] = tot[i];
+              mine[(int64_t)(b0 + row) * C + n0 + col] = tot[i];
             tot[i] = 0.f;
           }
         }
@@ -1170,7 +1276,14 @@ factored_contract_tc_kernel(const __grid_constant__ CUtensorMap map_w2,
       part[r * PW + c] = s;
     }
   } else {
-    if (nsplit == 1) return;  // written in the loop; uniform over the block
+    if (nsplit == 1) {  // written in the loop; uniform over the block
+      // one tile a block wherever a tile has several parts
+      if (kparts > 1)
+        add_parts_if_last(dst, out, counters + (n0 / BN) * n_b + b0 / BM,
+                          kparts, kparts, B, C, b0, min(BM, B - b0), n0,
+                          min(64, C - n0), tid, NCONS);
+      return;
+    }
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int row = row0 + 8 * ((i / 2) % 2);
@@ -1200,9 +1313,16 @@ factored_contract_tc_kernel(const __grid_constant__ CUtensorMap map_w2,
 #pragma unroll
     for (int q = 1; q < MAX_CLUSTER; ++q)
       if (q < nsplit) s += v[q];
-    out[(int64_t)b * C + (BY_N ? 0 : n0) + col] = s;
+    mine[(int64_t)b * C + (BY_N ? 0 : n0) + col] = s;
   }
   cluster.sync();  // no block leaves while another reads its partial
+  // partials of an output tile, and the blocks that write them
+  const int nparts = kparts * (BY_N ? n_n : 1);
+  if (nparts > 1)
+    add_parts_if_last(dst, out,
+                      counters + (BY_N ? 0 : (n0 / BN) * n_b) + b0 / BM,
+                      nparts * nsplit, nparts, B, C, b0, min(BM, B - b0),
+                      BY_N ? 0 : n0, W, tid, NCONS);
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -1249,9 +1369,10 @@ CUresult make_map(CUtensorMap* map, CUtensorMapDataType type,
 
 template <int BN, Epi EPI, Src S>
 cudaError_t launch(const CUtensorMap& mw2, const CUtensorMap& mpot,
-                   const float* w1, float* dst, const int* pot_exp,
-                   int B, int R1, int R2, int C, int n_b, int n_n, int nsplit,
-                   int kparts, int grid, cudaStream_t stream) {
+                   const float* w1, float* dst, float* out, int* counters,
+                   const int* pot_exp, int B, int R1, int R2, int C, int n_b,
+                   int n_n, int nsplit, int kparts, int grid,
+                   cudaStream_t stream) {
   auto kern = factored_contract_tc_kernel<BN, EPI, S>;
   constexpr int bytes = Layout<BN, EPI != BY_C, S>::BYTES;
   cudaError_t e = allow_smem<factored_contract_tc_kernel<BN, EPI, S>>(bytes);
@@ -1268,8 +1389,8 @@ cudaError_t launch(const CUtensorMap& mw2, const CUtensorMap& mpot,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kern, mw2, mpot, w1, dst, pot_exp, B, R1, R2,
-                         C, n_b, n_n, nsplit, kparts);
+  e = cudaLaunchKernelEx(&cfg, kern, mw2, mpot, w1, dst, out, counters,
+                         pot_exp, B, R1, R2, C, n_b, n_n, nsplit, kparts);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -1283,14 +1404,14 @@ template <Src S> constexpr bool FOLD_128 = S != F32X6;
 // The kernel of (bn, tiling, C) for source S.
 template <Src S>
 cudaError_t dispatch(const CUtensorMap& mw2, const CUtensorMap& mpot,
-                     const float* w1, float* dst, const int* pot_exp,
-                     int by_n, int bn, int B, int R1, int R2, int C, int n_b,
-                     int n_n, int nsplit, int kparts, int grid,
-                     cudaStream_t s) {
+                     const float* w1, float* dst, float* out, int* counters,
+                     const int* pot_exp, int by_n, int bn, int B, int R1,
+                     int R2, int C, int n_b, int n_n, int nsplit, int kparts,
+                     int grid, cudaStream_t s) {
   const bool fold = 8 % C == 0;  // C in {1, 2, 4, 8}
 #define JT_LAUNCH(BN_, EPI_)                                                 \
-  launch<BN_, EPI_, S>(mw2, mpot, w1, dst, pot_exp, B, R1, R2, C, n_b, n_n, \
-                       nsplit, kparts, grid, s)
+  launch<BN_, EPI_, S>(mw2, mpot, w1, dst, out, counters, pot_exp, B, R1,   \
+                       R2, C, n_b, n_n, nsplit, kparts, grid, s)
   if (!by_n && bn == 64) return JT_LAUNCH(64, BY_C);
   if (by_n && bn == 64) return fold ? JT_LAUNCH(64, FOLD) : JT_LAUNCH(64, SMEM);
   if (by_n && bn == 128) {
@@ -1359,18 +1480,23 @@ extern "C" {
 // blocks (the "c" tiling, nsplit = kparts = 1) walks the tiles in turn.
 // pot_exp (src 1, 2): what jt_split_pot left.  With nparts = kparts * (n_n
 // for the "n" tiling, else 1) > 1, `ws` is a [nparts, B, C] float32 scratch
-// buffer that split_sum_kernel adds into `out`; with nparts == 1 it is
-// unused and the kernel writes `out`.  Returns the cudaError_t of the
-// launches (0 on success), or MAP_ERROR + the CUresult of a tensor map that
-// could not be made; it does not synchronise.
+// buffer for the partials, which the last block of each output tile adds
+// into `out`, and `counters` holds an int32 of zero for each output tile
+// (n_b, or n_b * n_n in the "c" tiling), left at zero: one buffer for each
+// stream, never shared between launches that may run at once.  With
+// nparts == 1 both are unused and the kernel writes `out`.  One launch;
+// returns its cudaError_t (0 on success), or MAP_ERROR + the CUresult of a
+// tensor map that could not be made; it does not synchronise.
 int jt_factored_contract(const void* pot, const void* w1, const void* w2,
-                         void* out, void* ws, int src, int by_n, int64_t B,
-                         int64_t R1, int64_t R2, int64_t C, int bn, int n_b,
-                         int n_n, int nsplit, int kparts, int grid,
-                         int nparts, int64_t ld_pot, int64_t ld_w2,
-                         const void* pot_exp, void* stream) {
+                         void* out, void* ws, void* counters, int src,
+                         int by_n, int64_t B, int64_t R1, int64_t R2,
+                         int64_t C, int bn, int n_b, int n_n, int nsplit,
+                         int kparts, int grid, int nparts, int64_t ld_pot,
+                         int64_t ld_w2, const void* pot_exp, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* res = static_cast<float*>(out);
   float* dst = static_cast<float*>(nparts > 1 ? ws : out);
+  int* cnt = static_cast<int*>(counters);
   const float* a = static_cast<const float*>(w1);
   const int* pexp = static_cast<const int*>(pot_exp);
   const bool f32 = src != 0;
@@ -1399,51 +1525,45 @@ int jt_factored_contract(const void* pot, const void* w1, const void* w2,
   if (r != CUDA_SUCCESS) return MAP_ERROR + (int)r;
   const int b = (int)B, r1 = (int)R1, r2 = (int)R2, c = (int)C;
   cudaError_t err =
-      src == 0   ? tc::dispatch<tc::BF16>(mw2, mpot, a, dst, pexp, by_n, bn,
-                                          b, r1, r2, c, n_b, n_n, nsplit,
-                                          kparts, grid, s)
-      : src == 1 ? tc::dispatch<tc::F32X6>(mw2, mpot, a, dst, pexp, by_n, bn,
-                                           b, r1, r2, c, n_b, n_n, nsplit,
-                                           kparts, grid, s)
-                 : tc::dispatch<tc::F32X1>(mw2, mpot, a, dst, pexp, by_n, bn,
-                                           b, r1, r2, c, n_b, n_n, nsplit,
-                                           kparts, grid, s);
-  if (err != cudaSuccess || nparts == 1) return (int)err;
-  const int64_t n = B * C;
-  const int threads = 256;
-  split_sum_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0, s>>>(
-      static_cast<const float*>(ws), static_cast<float*>(out), n, nparts);
-  return (int)cudaGetLastError();
+      src == 0   ? tc::dispatch<tc::BF16>(mw2, mpot, a, dst, res, cnt, pexp,
+                                          by_n, bn, b, r1, r2, c, n_b, n_n,
+                                          nsplit, kparts, grid, s)
+      : src == 1 ? tc::dispatch<tc::F32X6>(mw2, mpot, a, dst, res, cnt, pexp,
+                                           by_n, bn, b, r1, r2, c, n_b, n_n,
+                                           nsplit, kparts, grid, s)
+                 : tc::dispatch<tc::F32X1>(mw2, mpot, a, dst, res, cnt, pexp,
+                                           by_n, bn, b, r1, r2, c, n_b, n_n,
+                                           nsplit, kparts, grid, s);
+  return (int)err;
 }
 
 // The narrow float32 product (N = R1*C <= bn, bn 16 or 32): pot is [R2,
 // R1*C] rows, w2 [B, R2], both contiguous; vec_a / vec_b say that w2 / pot
 // may be staged in 16-byte chunks.  Block (split, row tile) takes r2 in
 // [split * k_per_split, ...).  With nsplit > 1, `ws` is a [nsplit, B, C]
-// float32 scratch buffer that split_sum_kernel adds into `out`; else the
-// kernel writes `out`.  Returns the cudaError_t of the launches.
+// float32 scratch buffer for the partials, which the last block of each
+// row tile adds into `out`, and `counters` n_b int32 zeros, as for
+// jt_factored_contract; else the kernel writes `out`.  One launch; returns
+// its cudaError_t.
 int jt_factored_contract_fma(const void* pot, const void* w1, const void* w2,
-                             void* out, void* ws, int64_t B, int64_t R1,
-                             int64_t R2, int64_t C, int bn, int n_b,
-                             int nsplit, int64_t k_per_split, int vec_a,
-                             int vec_b, void* stream) {
+                             void* out, void* ws, void* counters, int64_t B,
+                             int64_t R1, int64_t R2, int64_t C, int bn,
+                             int n_b, int nsplit, int64_t k_per_split,
+                             int vec_a, int vec_b, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* res = static_cast<float*>(out);
   float* dst = static_cast<float*>(nsplit > 1 ? ws : out);
+  int* cnt = static_cast<int*>(counters);
   const float* p = static_cast<const float*>(pot);
   const float* a = static_cast<const float*>(w1);
   const float* w = static_cast<const float*>(w2);
   cudaError_t err =
-      bn == 16 ? launch_fma<16>(p, a, w, dst, B, R1, R2, C, n_b, nsplit,
-                                k_per_split, vec_a, vec_b, s)
-      : bn == 32 ? launch_fma<32>(p, a, w, dst, B, R1, R2, C, n_b, nsplit,
-                                  k_per_split, vec_a, vec_b, s)
+      bn == 16 ? launch_fma<16>(p, a, w, dst, res, cnt, B, R1, R2, C, n_b,
+                                nsplit, k_per_split, vec_a, vec_b, s)
+      : bn == 32 ? launch_fma<32>(p, a, w, dst, res, cnt, B, R1, R2, C, n_b,
+                                  nsplit, k_per_split, vec_a, vec_b, s)
                  : cudaErrorInvalidValue;
-  if (err != cudaSuccess || nsplit == 1) return (int)err;
-  const int64_t n = B * C;
-  const int threads = 256;
-  split_sum_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0, s>>>(
-      static_cast<const float*>(ws), static_cast<float*>(out), n, nsplit);
-  return (int)cudaGetLastError();
+  return (int)err;
 }
 
 // Split the f32 pot [R1, R2, C] (element strides s1, s2, s3) into

@@ -1045,6 +1045,7 @@ class Engine:
         self._seq_mesh = None                 # set by shard_sequence()
         self._seq_axis = "batch"
         self._seq_min_len = 2048
+        self._kept_reckoned = None  # (threshold, bytes): _kept_bytes_bound
 
     def _place(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=self.compute_dtype, device=self.device)
@@ -1127,7 +1128,9 @@ class Engine:
         clique whose states do not divide over the axis is refused above the
         single-device cap, and placed whole (with a note) below it."""
         if self._model_mesh is None:
-            return [self._place(p) for p in pots]
+            out = [self._place(p) for p in pots]
+            self._mark_standing(out)
+            return out
         n = int(self._model_mesh.shape[MODEL_AXIS])
         rows = self._model_mesh.devices.shape[0] if self._tp_shard_batch else 1
         out = []
@@ -1150,6 +1153,7 @@ class Engine:
                     f"axis {n}; placed unsharded on one device"
                 )
             out.append(self._place(p))
+        self._mark_standing(out)
         return out
 
     def _require_pots(self, whole: bool = True) -> list:
@@ -1173,6 +1177,7 @@ class Engine:
             return pots
         if self._pots_prog is None:
             self._pots_prog = [p.to(storage) for p in pots]
+            self._mark_standing(self._pots_prog)
         return self._pots_prog
 
     def _require_pots_np(self) -> List[np.ndarray]:
@@ -1307,7 +1312,85 @@ class Engine:
             st["kernel_routing"] = rt
         if self._model_mesh is not None:
             st["tp_fallbacks"] = list(self._tp_notes)
+        st["kept_layouts"] = self._kept_now()
         return st
+
+    def _standing(self) -> list:
+        """The engine's standing potential tensors: as set, and the serving
+        program's storage copies (bfloat16 storage)."""
+        pots = [p for p in (self._pots or []) if isinstance(p, torch.Tensor)]
+        return pots + [p for p in (self._pots_prog or [])
+                       if isinstance(p, torch.Tensor)
+                       and not any(p is q for q in pots)]
+
+    def _kept_now(self) -> dict:
+        """What the card keeps beside the standing potentials now
+        (``ops.factored_contract.kept``): layouts and their bytes."""
+        from .ops.factored_contract import kept_sizes
+
+        sizes = [b for p in self._standing() for b in kept_sizes(p)]
+        return {"layouts": len(sizes), "bytes": sum(sizes)}
+
+    def _kept_layouts(self, c: int) -> int:
+        """How many contractions one call routes to clique ``c``'s
+        potential, each in a layout of its own: one for each of its
+        variables' marginals, each of its neighbours' messages, and Z.
+        What the card keeps beside the potential is bounded by that."""
+        tree = self.plan.tree
+        return (len(self.plan.clique_vars[c]) + len(tree.children[c])
+                + int(tree.parent[c] >= 0) + 1)
+
+    def _mark_standing(self, pots) -> None:
+        """Mark the potentials the engine keeps as standing
+        (``ops.factored_contract.standing``): on the card the route keeps
+        what the kernel reads of them."""
+        from .ops.factored_contract import standing
+
+        for c, p in enumerate(pots):
+            if isinstance(p, torch.Tensor):
+                standing(p, self._kept_layouts(c))
+
+    def _kept_bytes_bound(self) -> int:
+        """The most the card keeps beside this engine's potentials: for
+        each clique whose potential the route hands the kernel, and each
+        dtype the engine stores it in (the serving program reads the
+        bfloat16 storage copies, entropy and joints the float32 potentials
+        as set), ``_kept_layouts`` times its largest layout
+        (``ops.factored_contract.layout_bytes_bound``, in closed form over
+        every grouping of its axes: 6.06 B a state in float32, 16 B in
+        bfloat16, whose rows of one column are padded to eight); 0 on the
+        CPU, where nothing is kept.
+
+        Which cliques: those whose potential one ``posterior_batch`` on
+        meta tensors (nothing computed, no device) with evidence on every
+        variable hands the kernel (``factored_contract.handed``), reckoned
+        once per engine and threshold.  The route hands a potential over
+        only where every message of the contraction is batched (a message
+        from a subtree without evidence is multiplied in first, a product
+        that keeps nothing), and evidence everywhere batches them all, so
+        no other pattern hands over a clique this one does not."""
+        from .ops.factored_contract import handed, layout_bytes_bound
+
+        if self.device.type == "cpu" or self.semiring != SUM_PRODUCT:
+            return 0
+        key = _CFG.big_clique_min_states
+        if self._kept_reckoned is None or self._kept_reckoned[0] != key:
+            meta = Engine(self.plan, self.semiring, device="meta",
+                          dtype=self.dtype)
+            meta._pots = [torch.empty(self.plan.clique_shape(c),
+                                      dtype=self.compute_dtype, device="meta")
+                          for c in range(self.plan.tri.num_cliques)]
+            meta._mark_standing(meta._pots)
+            meta.posterior_batch([torch.empty((1, k), device="meta")
+                                  for k in self.plan.sizes])
+            progs = meta._pots_prog or meta._pots
+            dtypes = {self.compute_dtype, self.storage_dtype()}
+            total = sum(
+                self._kept_layouts(c) * layout_bytes_bound(p.shape, dt)
+                for c, (p, q) in enumerate(zip(meta._pots, progs))
+                if handed(p) or handed(q) for dt in dtypes)
+            self._kept_reckoned = (key, total)
+        return self._kept_reckoned[1]
 
     def __repr__(self) -> str:
         st = self.plan.stats()
@@ -2028,8 +2111,9 @@ class Engine:
         analysis: Optional[dict] = None, task: str = "posterior",
     ) -> int:
         """Largest power-of-two evidence batch whose call keeps the device
-        memory it allocates, the standing potentials included, inside
-        ``budget_bytes``.
+        memory it allocates, the standing potentials and what the card
+        keeps beside them for the kernel (``_kept_bytes_bound``) included,
+        inside ``budget_bytes``.
 
         On models with huge cliques and separators the batch size, not the
         model, is what overflows memory.  By default the bytes of one row
@@ -2057,7 +2141,7 @@ class Engine:
                    for vs in self.plan.tree.separators)
         per_query = itemsize * int(
             self.ROW_CLIQUES[task] * st["max_clique_states"] + 2 * seps)
-        held = itemsize * st["total_clique_states"]
+        held = itemsize * st["total_clique_states"] + self._kept_bytes_bound()
         if analysis is not None:
             headroom = budget_bytes - int(analysis["temp_bytes"])
             if headroom < 0:

@@ -93,12 +93,13 @@ def load_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(so)
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.jt_factored_contract.argtypes = [
-            p, p, p, p, p, i32, i32, i64, i64, i64, i64,
+            p, p, p, p, p, p, i32, i32, i64, i64, i64, i64,
             i32, i32, i32, i32, i32, i32, i32, i64, i64, p, p,
         ]
         lib.jt_factored_contract.restype = i32
         lib.jt_factored_contract_fma.argtypes = [
-            p, p, p, p, p, i64, i64, i64, i64, i32, i32, i32, i64, i32, i32, p,
+            p, p, p, p, p, p, i64, i64, i64, i64, i32, i32, i32, i64, i32, i32,
+            p,
         ]
         lib.jt_factored_contract_fma.restype = i32
         lib.jt_split_pot.argtypes = [
@@ -140,7 +141,8 @@ def sass_op_counts() -> dict:
     epilogue of the tensor-core kernel (``bf16_by_c``, ``bf16_fold``,
     ``bf16_smem``, ``f32_*``, ``f32_default_*``), ``f32_narrow`` (the
     CUDA-core kernel of narrow float32 products), ``split`` (the float32
-    potential's split into bf16 planes) and ``other`` (the fixed-order sum):
+    potential's split into bf16 planes) and ``other`` (any other kernel:
+    none since the contraction kernels add their own partials):
     ``{kind: {op: count}}``, summed over the kernels of a kind.  {} where
     the toolkit has no cuobjdump."""
     nvcc = _nvcc()

@@ -18,6 +18,14 @@ Accelerator (bfloat16 in one pass, float32 in six bf16 passes, as XLA runs
 "highest" on the TPU, after a small kernel splits the float32 potential
 into bf16 planes), with the ``w1`` sum fused behind it; float32 products of
 at most 32 columns (the model shards) run plain f32 FMAs on the CUDA cores.
+Where the r2 sum is split over several blocks, the last block of each
+output tile adds their partials in a fixed order inside the same launch.
+
+A serving path hands the kernel the engine's standing potential
+(:class:`StandingLayout`): what the launch reads of it in one layout (the
+float32 split's bf16 planes, or bfloat16 rows) is made on the first call
+and kept beside the tensor (:func:`kept`), so later calls skip the
+permute copy and the split.
 
 :func:`reference_factored_contract` is the plain PyTorch version (and
 :func:`reference_split_pot` that of the split).  The
@@ -32,10 +40,12 @@ for every float32 and bfloat16 tensor on the card.
 from __future__ import annotations
 
 import functools
-from typing import List, Sequence, Tuple
+from collections import OrderedDict
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .semirings import SUM_PRODUCT, pinned_precision
 
@@ -156,7 +166,7 @@ def _fma_config(B: int, R1: int, R2: int, C: int, n_sm: int) -> dict:
     ``bm = 8192 / bn`` rows by all N <= ``bn`` (16 or 32) columns, and r2
     is split into contiguous ranges (``k_per_split``, in steps of 16) until
     every SM holds as many blocks as fit; the ``nsplit`` [B, C] partials
-    are added in a fixed order by a second kernel."""
+    are added in a fixed order by the last block of each row tile."""
     bn = 16 if R1 * C <= 16 else 32
     bm = 64 * FMA_NT // bn
     smem = fma_smem_bytes(bn)
@@ -207,19 +217,19 @@ def launch_config(
     r2 is split ``kparts * nsplit`` ways: the ``nsplit`` blocks of one
     cluster add their partials in rank order, and each of a tile's
     ``kparts`` clusters leaves a partial, as does each column tile of the
-    "n" tiling (``nparts`` in all), for a second kernel that adds them in a
-    fixed order.  Clusters are only as large as lets all of them be
-    resident at once: ``cluster_slots(bn, by_n)`` gives the clusters of
-    each size 1..8 that the card holds (the wrapper asks the card for the
-    kernel of ``src``; by default ``n_sm // size``, as if they packed
-    perfectly).  float32 splits r2 as many ways as make one wave of blocks
-    (at most the r2 steps), taking of those the largest cluster; bfloat16
-    splits it over one cluster alone, the largest that fits (``kparts =
-    1``): on an H100 the second kernel's launch cost bf16 more than the SMs
-    it left idle, and f32, whose stages take longer, less.  Block z of a
-    tile's splits takes the r2 steps ``z, z + kparts * nsplit, ...``
-    (``k_per_split`` is the step, ``bk``), so that a cluster reads
-    neighbouring pieces of the same w2 rows at once.
+    "n" tiling (``nparts`` in all), which the last block of the output tile
+    to finish adds in a fixed order.  Clusters are only as large as lets
+    all of them be resident at once: ``cluster_slots(bn, by_n)`` gives the
+    clusters of each size 1..8 that the card holds (the wrapper asks the
+    card for the kernel of ``src``; by default ``n_sm // size``, as if they
+    packed perfectly).  float32 splits r2 as many ways as make one wave of
+    blocks (at most the r2 steps), taking of those the largest cluster;
+    bfloat16 splits it over one cluster alone, the largest that fits
+    (``kparts = 1``): on an H100 a second kernel's launch for the sum cost
+    bf16 more than the SMs it left idle, and f32, whose stages take longer,
+    less.  Block z of a tile's splits takes the r2 steps ``z, z + kparts *
+    nsplit, ...`` (``k_per_split`` is the step, ``bk``), so that a cluster
+    reads neighbouring pieces of the same w2 rows at once.
 
     ``grid`` blocks in all, one an SM: one a tile and split, but the "c"
     tiling without clusters (more tiles than SMs) runs one wave of
@@ -350,10 +360,7 @@ def _split_pot(lib, pot: torch.Tensor, cfg: dict, stream
     the address of the boxes' exponents (int32), which the buffer holds
     behind the planes.  Counts ``factored_masked_contract.splits``."""
     R1, R2, C = (int(d) for d in pot.shape)
-    rows, ncols = (R2, R1 * C) if cfg["by_n"] else (R1 * R2, C)
-    ld = -(-ncols // 8) * 8
-    boxes = (1 if cfg["by_n"] else R1) * -(-R2 // cfg["bk"]) * -(-ncols // 64)
-    n = cfg["planes"] * rows * ld
+    n, boxes, ld = _operand_elems(R1, R2, C, cfg)
     buf = torch.empty(n + 2 * boxes, dtype=torch.bfloat16, device=pot.device)
     exps = buf.data_ptr() + 2 * n  # 16-byte aligned: ld is a multiple of 8
     rc = lib.jt_split_pot(
@@ -367,14 +374,281 @@ def _split_pot(lib, pot: torch.Tensor, cfg: dict, stream
     return buf, ld, exps
 
 
+def _operand_elems(R1: int, R2: int, C: int, cfg: dict
+                   ) -> Tuple[int, int, int]:
+    """bf16 elements of what the tensor-core launch reads of pot in
+    ``cfg``'s tiling (the planes, or the bf16 rows), the boxes whose
+    exponents follow the float32 planes (0 for bf16), and the row stride:
+    rows of r2 ("n" tiling) or of (r1, r2), columns padded to 8."""
+    rows, ncols = (R2, R1 * C) if cfg["by_n"] else (R1 * R2, C)
+    ld = -(-ncols // 8) * 8
+    if cfg["bf16"]:
+        return rows * ld, 0, ld
+    boxes = (1 if cfg["by_n"] else R1) * -(-R2 // cfg["bk"]) * -(-ncols // 64)
+    return cfg["planes"] * rows * ld, boxes, ld
+
+
+class Operand(NamedTuple):
+    """What a tensor-core launch reads of pot: ``buf`` (float32: the bf16
+    planes and, behind them, the boxes' exponents at address ``exps``;
+    bfloat16: the rows) with row stride ``ld``.  A kept one also holds the
+    ``stream`` it was made on and an event ``ready`` recorded there."""
+    buf: torch.Tensor
+    ld: int
+    exps: Optional[int] = None
+    stream: object = None
+    ready: object = None
+
+
+class StandingLayout:
+    """A standing potential seen in one kernel layout: ``pot`` (a tensor in
+    its clique's axis order, on the card, needing no gradient) with the
+    axes ``r1``, ``r2`` and ``c`` grouped into the kernel's [R1, R2, C];
+    ``r2_first`` stores it as [R2, R1, C] rows (the "n" tiling).  This is
+    what :func:`big_clique_sep_message` hands the kernel for a tensor
+    marked :func:`standing` (the engine's potentials): the operand the launch
+    reads is made on the first call and kept beside ``pot`` (:func:`kept`,
+    keyed on the layout and on what the launch reads: float32 planes per
+    tiling and pass count, or bfloat16 rows).  ``tensor()`` is the [R1, R2,
+    C] view, copied where the axes ask; the narrow float32 route and the
+    plain version read it on every call."""
+
+    requires_grad = False
+
+    def __init__(self, pot: torch.Tensor, r1: Sequence[int],
+                 r2: Sequence[int], c: Sequence[int], r2_first: bool):
+        self.pot, self.r2_first = pot, bool(r2_first)
+        self.axes = (tuple(r1), tuple(r2), tuple(c))
+        self.key = self.axes + (self.r2_first,)
+        self.shape = tuple(
+            int(np.prod([pot.shape[a] for a in ax])) for ax in self.axes)
+        self.dtype, self.device = pot.dtype, pot.device
+        self.is_cuda = pot.is_cuda
+
+    def tensor(self) -> torch.Tensor:
+        r1, r2, c = (list(ax) for ax in self.axes)
+        R1, R2, C = self.shape
+        if self.r2_first:
+            return self.pot.permute(r2 + r1 + c).reshape(R2, R1, C).permute(
+                1, 0, 2)
+        return self.pot.permute(r1 + r2 + c).reshape(R1, R2, C)
+
+
+class _Kept:
+    """What is kept beside one standing tensor: at most ``layouts``
+    operands in ``ops`` ({key: (operand, ``misses`` when last used)}, least
+    recently used first), for its ``version``; ``handed`` counts the
+    route's contractions that handed the tensor over as a standing one."""
+
+    __slots__ = ("layouts", "version", "misses", "ops", "handed")
+
+    def __init__(self, layouts: int):
+        self.layouts, self.version, self.misses = int(layouts), None, 0
+        self.ops: OrderedDict = OrderedDict()
+        self.handed = 0
+
+
+# standing tensor -> _Kept
+_KEPT = WeakIdKeyDictionary()
+
+
+def standing(pot: torch.Tensor, layouts: int) -> None:
+    """Mark ``pot`` as a standing potential, one that outlives the calls
+    that read it (an engine's potentials): :func:`kept` then keeps at most
+    ``layouts`` operands for it, the number of contractions one call routes
+    to its clique (``Engine._kept_layouts``).  Nothing is kept for any other
+    tensor, nor for an inference tensor (it has no version counter to tell
+    an edit) or one that requires a gradient."""
+    if not (pot.is_inference() or pot.requires_grad):
+        _KEPT[pot] = _Kept(layouts)
+
+
+def _entry(pot: torch.Tensor) -> Optional[_Kept]:
+    """``pot``'s entry in :data:`_KEPT` with what it holds dropped if
+    ``pot`` was edited since, or None where nothing may be kept."""
+    if pot.is_inference() or pot.requires_grad:
+        return None
+    entry = _KEPT.get(pot)
+    if entry is not None and entry.version != pot._version:
+        entry.version = pot._version
+        entry.ops.clear()
+    return entry
+
+
+def handed(pot: torch.Tensor) -> int:
+    """How many contractions the route handed ``pot`` to the kernel's
+    wrapper as a standing potential (on any device; ``Engine`` counts on
+    meta tensors which cliques reach the kernel)."""
+    entry = _KEPT.get(pot) if not pot.is_inference() else None
+    return 0 if entry is None else entry.handed
+
+
+def kept(pot: torch.Tensor, key, make):
+    """``make()`` for the tensor ``pot`` and ``key``, made once and kept
+    beside ``pot`` while it lives and is not edited, where ``pot`` is
+    marked :func:`standing`; else made on every call.
+
+    Keyed on the tensor object (a weak key: the entry dies with the
+    tensor, and a later tensor at the same address never finds it) and on
+    its ``_version``: an in-place edit, through any view, drops all that
+    is kept for it.  Nothing is kept for a tensor that requires a gradient
+    (the learning paths change theirs on every step).  At most the
+    ``layouts`` keys given to :func:`standing`: once they are taken, the
+    least recently used goes out for a new key only if more misses on
+    ``pot`` than one call's ``layouts`` have passed since it was last used
+    (the calls have moved on to other layouts, as under another evidence
+    pattern); else the new operand serves its call alone.  So one call of
+    another pattern between two of a steady one, or a call that needs a
+    layout beyond a call's (a joint beside posteriors), makes its own
+    operands and puts none of the steady call's out.  Counts
+    ``kept.hits`` and ``kept.misses``."""
+    entry = _entry(pot)
+    if entry is None:
+        kept.misses += 1
+        return make()
+    ops = entry.ops
+    if key in ops:
+        ops[key] = (ops[key][0], entry.misses)
+        ops.move_to_end(key)
+        kept.hits += 1
+        return ops[key][0]
+    kept.misses += 1
+    entry.misses += 1
+    value = make()
+    if len(ops) >= entry.layouts:
+        oldest = next(iter(ops))
+        if entry.misses - ops[oldest][1] <= entry.layouts:
+            return value
+        del ops[oldest]
+    ops[key] = (value, entry.misses)
+    return value
+
+
+kept.hits = 0
+kept.misses = 0
+
+
+def kept_sizes(pot: torch.Tensor) -> List[int]:
+    """Bytes of each :class:`Operand` kept beside ``pot`` now."""
+    entry = _entry(pot)
+    if entry is None:
+        return []
+    return [op.buf.numel() * op.buf.element_size()
+            for op, _ in entry.ops.values()]
+
+
+def layout_bytes_bound(shape: Sequence[int], dtype: torch.dtype) -> int:
+    """The most bytes one kept operand of a potential of ``shape`` and
+    ``dtype`` takes, over every grouping of its axes into [R1, R2, C] the
+    route can ask for and both precisions: what :func:`_operand_elems`
+    gives at the worst grouping.  Every such R1*C ("n" tiling, with C = 1
+    at its widest) and C ("c" tiling, with R2 = 1, which has the most
+    exponent boxes) is a product of some of the axes' sizes.  bfloat16
+    rows of one column (Z with no evidence grouped into r1) take 8 times
+    the potential's bytes, padded to 16-byte rows; float32 products that
+    narrow run on the CUDA cores and keep nothing."""
+    states = int(np.prod(shape))
+    prods = {1}
+    for k in shape:
+        prods |= {n * int(k) for n in prods}
+    bf16 = dtype == torch.bfloat16
+    worst = 0
+    for n in prods:
+        groupings = [(n, states // n, 1, True)]
+        if not tiles_by_n(n):
+            groupings.append((states // n, 1, n, False))
+        for R1, R2, C, by_n in groupings:
+            for precision in PRECISIONS:
+                src = source(bf16, precision, R1 * C if by_n else None)
+                if src == "fma":
+                    continue
+                cfg = dict(by_n=by_n, bk=BK[src], planes=PLANES[src],
+                           bf16=bf16)
+                elems, boxes, _ = _operand_elems(R1, R2, C, cfg)
+                worst = max(worst, 2 * elems + 4 * boxes)
+    return worst
+
+
+def _operand(lib, pot, cfg: dict, stream) -> Operand:
+    """What the tensor-core launch reads of ``pot``, on ``stream`` (a
+    ``torch.cuda.Stream``): the split of a float32 potential, the bf16 rows
+    of a bfloat16 one (no copy where the tensor has the layout already).
+    Made on every call for a tensor, kept for a :class:`StandingLayout`; a
+    kept operand made on another stream is waited for on this one (an
+    event, no host sync) and its memory marked in use by this stream."""
+    def make(t: torch.Tensor) -> Operand:
+        if not cfg["bf16"]:
+            return Operand(*_split_pot(lib, t, cfg, stream.cuda_stream))
+        ncols = t.shape[0] * t.shape[2] if cfg["by_n"] else t.shape[2]
+        rows = (t.permute(1, 0, 2) if cfg["by_n"] else t).to(
+            torch.bfloat16).contiguous()
+        return Operand(*_tma_rows(rows.reshape(-1, ncols)))
+
+    if not isinstance(pot, StandingLayout):
+        return make(pot)
+
+    def make_kept() -> Operand:
+        op = make(pot.tensor())
+        if op.buf.untyped_storage().data_ptr() == \
+                pot.pot.untyped_storage().data_ptr():
+            # the layout is the tensor's own: keep a copy, since a view
+            # would keep the tensor alive with its entry
+            op = op._replace(buf=op.buf.clone())
+        ready = torch.cuda.Event()
+        ready.record(stream)
+        return op._replace(stream=stream, ready=ready)
+
+    op = kept(pot.pot, _kept_key(pot, cfg), make_kept)
+    if op.stream != stream:
+        stream.wait_event(op.ready)
+        op.buf.record_stream(stream)
+    return op
+
+
+def _kept_key(layout: StandingLayout, cfg: dict) -> tuple:
+    """The key of what a launch of ``cfg`` reads of ``layout``: its axes,
+    and the tiling, stage depth and bf16 planes (float32), or bf16 rows."""
+    return layout.key + (cfg["src"], cfg["by_n"], cfg["bk"], cfg["planes"])
+
+
+# (device index, stream) -> int32 counters of output tiles, left at zero
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _tile_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` int32 zeros for the kernel's output-tile counters on
+    ``stream``: one buffer for each device and stream, zeroed once when it
+    is made, so that two launches that may run at once never share
+    counters.  A launch leaves them at zero (the last block of each tile
+    resets its counter)."""
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[key] = torch.zeros(
+            max(n, 1024), dtype=torch.int32, device=device)
+    return buf
+
+
+def _check_rc(lib, rc: int, device: torch.device, stream: int) -> None:
+    """Raise on a failed launch.  Its tile counters are dropped (the next
+    launch on the stream gets new zeros), so that a launch that stopped
+    half way leaves no count behind."""
+    if rc != 0:
+        _COUNTERS.pop((device.index, stream), None)
+        raise RuntimeError(
+            "factored_contract kernel launch failed: "
+            + lib.jt_error_string(rc).decode() + f" (code {rc})")
+
+
 def _launch_kernel(
-    pot: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+    pot, w1: torch.Tensor, w2: torch.Tensor,
     backward: bool = False, precision: str = "highest",
 ) -> torch.Tensor:
     """Check the operands and launch the CUDA kernel once (CUDA tensors
-    only), after the split of a float32 ``pot``.  Returns the float32
-    [B, C] result; counts the launch."""
-    if pot.dim() != 3 or w1.dim() != 2 or w2.dim() != 2:
+    only), after the split of a float32 ``pot`` (kept for a
+    :class:`StandingLayout`).  Returns the float32 [B, C] result; counts
+    the launch."""
+    if len(pot.shape) != 3 or w1.dim() != 2 or w2.dim() != 2:
         raise ValueError("expected pot [R1, R2, C], w1 [B, R1], w2 [B, R2]")
     R1, R2, C = (int(d) for d in pot.shape)
     B = int(w1.shape[0])
@@ -404,42 +678,34 @@ def _launch_kernel(
     from .cuda_build import load_library
 
     lib = load_library()
-    stream = torch.cuda.current_stream(pot.device).cuda_stream
-    ncols = R1 * C if cfg["by_n"] else C
+    stream = torch.cuda.current_stream(pot.device)
     if cfg["src"] == "fma":
-        _launch_fma(lib, pot, w1, w2, out, cfg, stream)
+        if isinstance(pot, StandingLayout):
+            pot = pot.tensor()
+        _launch_fma(lib, pot, w1, w2, out, cfg, stream.cuda_stream)
         factored_masked_contract.launches += 1
         factored_masked_contract.launches_backward += int(backward)
         return out
     with torch.cuda.device(pot.device):
-        if bf16:
-            # no copy where the caller already has the layout the kernel
-            # reads; TMA reads rows at 16-byte aligned addresses and strides
-            pot = (pot.permute(1, 0, 2) if cfg["by_n"] else pot).to(
-                torch.bfloat16).contiguous()
-            pot, ld_pot = _tma_rows(pot.reshape(-1, ncols))
-            exps = None
-        else:
-            pot, ld_pot, exps = _split_pot(lib, pot, cfg, stream)
-        w2, ld_w2 = _tma_rows(w2.to(pot.dtype if bf16 else torch.float32)
+        op = _operand(lib, pot, cfg, stream)
+        w2, ld_w2 = _tma_rows(w2.to(torch.bfloat16 if bf16 else torch.float32)
                               .contiguous())
         w1 = w1.to(torch.float32).contiguous()
-        ws = (
-            out if cfg["nparts"] == 1
-            else torch.empty((cfg["nparts"], B, C), dtype=torch.float32,
+        tiles = cfg["n_b"] * (1 if cfg["by_n"] else cfg["n_n"])
+        ws, counters = out, None
+        if cfg["nparts"] > 1:
+            ws = torch.empty((cfg["nparts"], B, C), dtype=torch.float32,
                              device=out.device)
-        )
+            counters = _tile_counters(out.device, stream.cuda_stream, tiles)
         rc = lib.jt_factored_contract(
-            pot.data_ptr(), w1.data_ptr(), w2.data_ptr(), out.data_ptr(),
-            ws.data_ptr(), SRC_CODE[src], int(cfg["by_n"]), B, R1, R2, C,
-            cfg["bn"], cfg["n_b"], cfg["n_n"], cfg["nsplit"], cfg["kparts"],
-            cfg["grid"], cfg["nparts"], ld_pot, ld_w2, exps, stream,
+            op.buf.data_ptr(), w1.data_ptr(), w2.data_ptr(), out.data_ptr(),
+            ws.data_ptr(), None if counters is None else counters.data_ptr(),
+            SRC_CODE[src], int(cfg["by_n"]), B, R1, R2, C, cfg["bn"],
+            cfg["n_b"], cfg["n_n"], cfg["nsplit"], cfg["kparts"],
+            cfg["grid"], cfg["nparts"], op.ld, ld_w2, op.exps,
+            stream.cuda_stream,
         )
-    if rc != 0:
-        raise RuntimeError(
-            "factored_contract kernel launch failed: "
-            + lib.jt_error_string(rc).decode() + f" (code {rc})"
-        )
+    _check_rc(lib, rc, out.device, stream.cuda_stream)
     factored_masked_contract.launches += 1
     factored_masked_contract.launches_bf16 += int(bf16)
     factored_masked_contract.launches_backward += int(backward)
@@ -458,18 +724,18 @@ def _launch_fma(lib, pot, w1, w2, out, cfg, stream) -> None:
     chunk = 4  # floats per 16-byte cp.async
     vec_a = w2.data_ptr() % 16 == 0 and R2 % chunk == 0
     vec_b = pot.data_ptr() % 16 == 0 and (R1 * C) % chunk == 0
-    ws = (out if cfg["nsplit"] == 1 else torch.empty(
-        (cfg["nsplit"], B, C), dtype=torch.float32, device=out.device))
+    ws, counters = out, None
+    if cfg["nsplit"] > 1:
+        ws = torch.empty((cfg["nsplit"], B, C), dtype=torch.float32,
+                         device=out.device)
+        counters = _tile_counters(out.device, stream, cfg["n_b"])
     with torch.cuda.device(out.device):
         rc = lib.jt_factored_contract_fma(
             pot.data_ptr(), w1.data_ptr(), w2.data_ptr(), out.data_ptr(),
-            ws.data_ptr(), B, R1, R2, C, cfg["bn"], cfg["n_b"],
-            cfg["nsplit"], cfg["k_per_split"], int(vec_a), int(vec_b),
-            stream)
-    if rc != 0:
-        raise RuntimeError(
-            "factored_contract kernel launch failed: "
-            + lib.jt_error_string(rc).decode() + f" (code {rc})")
+            ws.data_ptr(), None if counters is None else counters.data_ptr(),
+            B, R1, R2, C, cfg["bn"], cfg["n_b"], cfg["nsplit"],
+            cfg["k_per_split"], int(vec_a), int(vec_b), stream)
+    _check_rc(lib, rc, out.device, stream)
 
 
 def _contract_on_device(pot, w1, w2, backward=False, precision="highest"):
@@ -478,6 +744,8 @@ def _contract_on_device(pot, w1, w2, backward=False, precision="highest"):
     precision there, as XLA computes on the CPU."""
     if pot.is_cuda:
         return _launch_kernel(pot, w1, w2, backward, precision)
+    if isinstance(pot, StandingLayout):
+        pot = pot.tensor()
     return reference_factored_contract(pot, w1, w2)
 
 
@@ -600,7 +868,13 @@ def factored_masked_contract(
     the tensor cores; none before a narrow one).
     ``.padded`` counts the ``w2`` and bf16 ``pot`` operands copied into an
     aligned buffer first (an address or row length that the Tensor Memory
-    Accelerator cannot take)."""
+    Accelerator cannot take).
+
+    ``pot`` may also be a :class:`StandingLayout` (what
+    :func:`big_clique_sep_message` hands over for a standing potential):
+    then the split or the bf16 rows are made on the first call for that
+    layout and kept (:func:`kept`; ``kept.hits`` counts the calls that
+    found them), and ``.splits`` stays put on later calls."""
     source(False, precision)  # an unknown precision raises on every device
     operands = (pot, w1, w2)
     if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
@@ -620,11 +894,10 @@ factored_masked_contract.splits = 0
 factored_masked_contract.padded = 0
 
 
-def kernel_or_plain(
-    pot: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor
-) -> torch.Tensor:
+def kernel_or_plain(pot, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     """The contraction as the serving path runs it: the kernel for float32
-    and bfloat16 on the card; the plain version for other dtypes there
+    and bfloat16 on the card (``pot`` a tensor or a
+    :class:`StandingLayout`); the plain version for other dtypes there
     (float64 references), and, through the wrapper, off the card."""
     if pot.is_cuda and pot.dtype not in (torch.float32, torch.bfloat16):
         return reference_factored_contract(pot, w1, w2)
@@ -771,8 +1044,10 @@ def big_clique_sep_message(
     ``contract_fn(p3 [R1, R2, C], w1 [B, R1], w2 [B, R2]) -> [B, C]``
     replaces the one kernel call (``parallel.tp.tp_contract_fn`` shards it
     over a mesh's model axis).  Otherwise f32 and bf16 tensors on the card
-    run the CUDA kernel; every other dtype, and all CPU tensors, run the
-    plain version.  Each call adds one to ``big_clique_sep_message.calls``.
+    run the CUDA kernel, a ``pot`` marked :func:`standing` as a
+    :class:`StandingLayout` (what the launch reads of it is kept beside it
+    per layout); every other dtype, and all CPU tensors, run the plain
+    version.  Each call adds one to ``big_clique_sep_message.calls``.
     Returns [B, *sep_shape]."""
     cset = list(clique_vars)
     sset = list(sep_vars)
@@ -832,16 +1107,16 @@ def big_clique_sep_message(
         R1, R2 = 1, R
         w1, w2 = ones(1), ones(R)
     # the one copy of the permuted potential lands in the layout the kernel
-    # reads: [R2, R1, C] rows for a small separator, else [R1, R2, C]
+    # reads: [R2, R1, C] rows for a small separator, else [R1, R2, C]; for a
+    # standing potential on the card what the kernel reads of that layout
+    # is made once and kept (StandingLayout)
     r2_first = tiles_by_n(C)
     r1_axes, r2_axes, c_axes = (
         [cset.index(v) for v in vs] for vs in (g1_vars, g2_axes, sset))
     if isinstance(pot, torch.Tensor):
-        if r2_first:
-            p3 = pot.permute(r2_axes + r1_axes + c_axes).reshape(
-                R2, R1, C).permute(1, 0, 2)
-        else:
-            p3 = pot.permute(r1_axes + r2_axes + c_axes).reshape(R1, R2, C)
+        p3 = StandingLayout(pot, r1_axes, r2_axes, c_axes, r2_first)
+        if not (contract_fn is None and _hand_over(pot)):
+            p3 = p3.tensor()
     else:
         p3 = pot.kernel_layout(r1_axes, r2_axes, c_axes, r2_first)
 
@@ -860,3 +1135,16 @@ def big_clique_sep_message(
 
 
 big_clique_sep_message.calls = 0
+
+
+def _hand_over(pot: torch.Tensor) -> bool:
+    """Whether the route hands ``pot`` to the kernel as a
+    :class:`StandingLayout`: a float32 or bfloat16 tensor on the card
+    marked :func:`standing` (an engine's potential; not a product the
+    route made for this call), which is no inference tensor and needs no
+    gradient.  Counts the hand-over (:func:`handed`) on any device."""
+    entry = _entry(pot)
+    if entry is None or pot.dtype not in (torch.float32, torch.bfloat16):
+        return False
+    entry.handed += 1
+    return pot.is_cuda

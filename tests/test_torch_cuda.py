@@ -5,6 +5,8 @@ This file imports no JAX, so it also runs on a GPU machine without JAX:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -350,15 +352,16 @@ def test_bf16_kernels_run_on_wgmma_and_tma(cuda):
     bf16 and float32 at both precisions (three epilogues each, and the
     pairwise fold of six passes), holds HGMMA
     and UTMALDG instructions; the narrow float32 kernel (N <= 32, the
-    CUDA-core route the model shards keep), the pot split and the
-    fixed-order sum hold no tensor-core instruction."""
+    CUDA-core route the model shards keep) and the pot split hold no
+    tensor-core instruction, and there is no other kernel (the partials of
+    a split r2 sum are added inside the contraction kernels)."""
     from junctiontree_tpu_torch.ops import cuda_build
 
     cuda_build.load_library()
     counts = cuda_build.sass_op_counts()
     tc_kinds = {src + epi for src in ("bf16", "f32", "f32_default")
                 for epi in ("_by_c", "_fold", "_smem")} | {"f32_fold_pairs"}
-    assert tc_kinds | {"f32_narrow", "split", "other"} == set(counts)
+    assert tc_kinds | {"f32_narrow", "split"} == set(counts)
     for kind, ops in counts.items():
         tensor = sum(ops[op] for op in cuda_build.TENSOR_CORE_OPS)
         if kind in tc_kinds:
@@ -1209,3 +1212,243 @@ def test_parallel_surface_on_the_cards(cuda):
     q2, z2, i2 = split.posterior_batch(lmasks)
     assert i1["iters"] == i2["iters"]
     np.testing.assert_allclose(z2.cpu(), z1.cpu(), atol=1e-4)
+
+
+# -- the in-kernel sum of the r2 partials, and the kept pot operands -------
+
+
+# (R1, R2, C, B) whose r2 sum leaves several partials a tile: joints over 2
+# and 3 variables, the E-step forward, both model shards (narrow f32 tiles),
+# a B that is not a multiple of 128, more tiles than SMs, the "c" tiling at
+# a small B (its r2 over several clusters where the card's slots allow),
+# and B * C or C not a multiple of 4 (the sum's float4 loads do not fit)
+SPLIT_SUM_SHAPES = [(64, 1024, 4, 4096), (64, 512, 8, 4096),
+                    (512, 512, 1, 4096), (512, 256, 2, 4096),
+                    (16, 2048, 2, 4096), (16, 4096, 1, 4096),
+                    (64, 512, 8, 4000), (16, 2048, 2, 4000),
+                    (64, 512, 8, 32768), (2, 4096, 64, 512),
+                    (512, 512, 1, 4001), (2, 4096, 66, 512)]
+
+
+def _operands(cuda, R1, R2, C, B, dtype, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed + R1 + R2 + C + B)
+    if fc.tiles_by_n(C):  # the layout the route hands over
+        pot = torch.rand((R2, R1, C), generator=g, device=cuda).permute(1, 0, 2)
+    else:
+        pot = torch.rand((R1, R2, C), generator=g, device=cuda)
+    w1 = torch.rand((B, R1), generator=g, device=cuda)
+    w2 = torch.rand((B, R2), generator=g, device=cuda)
+    return pot.to(dtype), w1, w2.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R1,R2,C,B", SPLIT_SUM_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_in_kernel_sum_is_repeatable_and_close(cuda, R1, R2, C, B, dtype):
+    """Where the last block of a tile adds the partials, the bits do not
+    depend on which block came last: 20 runs, and runs on two streams at
+    once, give the same bits; within 2e-6 of max|out| of the plain
+    version.  The shapes named for it have several partials a tile."""
+    pot, w1, w2 = _operands(cuda, R1, R2, C, B, dtype)
+    cfg = fc.launch_config(
+        B, R1, R2, C, fc._sm_count(pot.device), dtype == torch.bfloat16,
+        functools.partial(fc._cluster_slots, pot.device, fc.source(
+            dtype == torch.bfloat16, "highest",
+            R1 * C if fc.tiles_by_n(C) else None)))
+    if fc.tiles_by_n(C) and (cfg["n_n"] > 1 or cfg["src"] == "fma"):
+        assert cfg["nparts"] > 1, cfg
+    k1 = fc.factored_masked_contract
+    first = k1(pot, w1, w2)
+    runs = [k1(pot, w1, w2) for _ in range(19)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    on_streams = []
+    for s in streams:
+        with torch.cuda.stream(s):
+            on_streams.append([k1(pot, w1, w2) for _ in range(5)])
+    torch.cuda.synchronize()
+    assert all(torch.equal(first, r) for r in runs)
+    assert all(torch.equal(first, r) for rs in on_streams for r in rs)
+    assert _rel_err(first, fc.reference_factored_contract(pot, w1, w2)) <= 2e-6
+
+
+@pytest.mark.cuda
+def test_in_kernel_sum_gradients_unchanged(cuda):
+    """The E-step's forward shape (512, 256, 2) leaves 8 partials a tile:
+    the Function's gradients stay within 1e-6 of max|grad| of the plain
+    version's."""
+    pot, w1, w2 = _operands(cuda, 512, 256, 2, 4096, torch.float32, seed=1)
+    up = torch.rand((4096, 2), device=cuda)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (pot, w1, w2)]
+    got = torch.autograd.grad(fc.factored_masked_contract(*leaves), leaves, up)
+    want = fc.factored_contract_grads(pot, w1, w2, up)
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) <= 1e-6
+
+
+def _big_clique_engine(cuda, dtype=torch.float32, B=512, seed=0):
+    rng = np.random.default_rng(seed)
+    names = [f"v{i}" for i in range(18)]
+    factors = [names[:]] + [[v] for v in names]
+    values = [rng.random((2,) * 18) + 0.1] + [rng.random(2) + 0.1
+                                               for _ in names]
+    tree = jt.create_junction_tree(factors, {v: 2 for v in names})
+    masks = jt.batch_masks_sparse(
+        tree.plan, jt.random_evidence_batch(tree.plan, B, names[:12], seed=1))
+    return tree, values, masks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_standing_potential_is_split_once(cuda, dtype):
+    """The big clique's 19 routed contractions split (float32) or permute
+    (bfloat16) the standing potential on an engine's first call, and read
+    what was kept on the next: 19 splits, then 0, and 19 kept operands
+    found; the two calls give the same bits."""
+    tree, values, masks = _big_clique_engine(cuda)
+    eng = tree.engine(device=cuda, dtype=dtype).set_potentials(values)
+    k1 = fc.factored_masked_contract
+    splits, misses = k1.splits, fc.kept.misses
+    first = eng.posterior_batch(masks)
+    torch.cuda.synchronize()
+    assert fc.kept.misses - misses == 19
+    assert k1.splits - splits == (19 if dtype == torch.float32 else 0)
+    splits, hits = k1.splits, fc.kept.hits
+    second = eng.posterior_batch(masks)
+    torch.cuda.synchronize()
+    assert k1.splits == splits and fc.kept.hits - hits == 19
+    assert torch.equal(first[1], second[1])
+    assert all(torch.equal(a, b) for a, b in zip(first[0], second[0]))
+    rep = eng.describe()["kept_layouts"]
+    per_state = 6 if dtype == torch.float32 else 2
+    assert rep["layouts"] == 19
+    assert 19 * per_state * (1 << 18) <= rep["bytes"] <= eng._kept_bytes_bound()
+
+
+@pytest.mark.cuda
+def test_kept_operands_follow_the_engines_potentials(cuda, tmp_path):
+    """After ``set_potentials`` with new values, ``multiply_factor`` and
+    ``load``, a live engine that kept its operands gives what a freshly
+    built engine gives, bit for bit; an in-place edit of the standing
+    tensor is seen too."""
+    tree, values, masks = _big_clique_engine(cuda, seed=2)
+    eng = tree.engine(device=cuda).set_potentials(values)
+    eng.posterior_batch(masks)
+
+    def same(a, b):
+        return torch.equal(a[1], b[1]) and all(
+            torch.equal(x, y) for x, y in zip(a[0], b[0]))
+
+    new = [v * np.linspace(0.5, 1.5, v.size).reshape(v.shape) for v in values]
+    eng.set_potentials(new)
+    fresh = tree.engine(device=cuda).set_potentials(new)
+    assert same(eng.posterior_batch(masks), fresh.posterior_batch(masks))
+    factor = np.array([[1.0, 3.0], [0.5, 2.0]])
+    eng.multiply_factor(["v3", "v9"], factor)
+    fresh.multiply_factor(["v3", "v9"], factor)
+    got = eng.posterior_batch(masks)
+    assert same(got, fresh.posterior_batch(masks))
+    path = str(tmp_path / "big.npz")
+    eng.save(path)
+    loaded = jt.Engine.load(path, device=cuda)
+    loaded.posterior_batch(masks)
+    assert same(loaded.posterior_batch(masks), got)
+    eng._pots[0].mul_(2.0)  # logZ moves by log 2, posteriors stay
+    _, logz = eng.posterior_batch(masks)
+    fin = torch.isfinite(got[1])
+    torch.testing.assert_close(logz[fin], got[1][fin] + np.log(2.0),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_kept_operand_read_on_another_stream(cuda):
+    """An operand kept on one stream and read on another (waited for by an
+    event) gives the bits of the first stream's call."""
+    pot, w1, w2 = _operands(cuda, 64, 2048, 2, 4096, torch.float32, seed=3)
+    rows = pot.permute(1, 0, 2).contiguous().view(2048, 64, 2)
+    fc.standing(rows, 1)
+    lay = fc.StandingLayout(rows, [1], [0], [2], True)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()  # the operands are made on the default stream
+    hits = fc.kept.hits
+    with torch.cuda.stream(s1):
+        a = fc.factored_masked_contract(lay, w1, w2)
+    with torch.cuda.stream(s2):
+        b = fc.factored_masked_contract(lay, w1, w2)
+    torch.cuda.synchronize()
+    assert fc.kept.hits == hits + 1  # s2 read what s1 kept
+    assert torch.equal(a, b)
+    assert torch.equal(a, fc.factored_masked_contract(lay.tensor(), w1, w2))
+
+
+def _same(a, b):
+    """Bitwise equal ``(tensors or tensor, tensor)`` results."""
+    if isinstance(a[0], torch.Tensor):
+        return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    return torch.equal(a[1], b[1]) and all(
+        torch.equal(x, y) for x, y in zip(a[0], b[0]))
+
+
+@pytest.mark.cuda
+def test_serving_under_inference_mode(cuda):
+    """Under ``torch.inference_mode()``, the usual way to serve,
+    ``posterior_batch`` and ``entropy_batch`` give the bits they give
+    outside it: on an engine set outside (its kept operands are used) and
+    on one set inside, whose potentials are inference tensors with no
+    version counter (nothing is kept for them: every call splits).  A
+    steady ``entropy_batch`` splits only its derived tensor, and keeps
+    nothing for it."""
+    tree, values, masks = _big_clique_engine(cuda, seed=4)
+    eng = tree.engine(device=cuda).set_potentials(values)
+    want = eng.posterior_batch(masks), eng.entropy_batch(masks)
+    k1 = fc.factored_masked_contract
+    with torch.inference_mode():
+        got = eng.posterior_batch(masks)
+        splits, entries = k1.splits, len(fc._KEPT)
+        h = eng.entropy_batch(masks)
+        assert k1.splits - splits == 1 and len(fc._KEPT) == entries
+        inf = tree.engine(device=cuda).set_potentials(values)
+        assert all(p.is_inference() for p in inf._pots)
+        splits = k1.splits
+        got_inf = inf.posterior_batch(masks)
+        assert k1.splits - splits == 19
+        h_inf = inf.entropy_batch(masks)
+        assert inf.describe()["kept_layouts"] == {"layouts": 0, "bytes": 0}
+    torch.cuda.synchronize()
+    assert _same(got, want[0]) and _same(got_inf, want[0])
+    assert _same(h, want[1]) and _same(h_inf, want[1])
+    splits = k1.splits
+    assert _same(inf.posterior_batch(masks), want[0])  # outside the mode too
+    assert k1.splits - splits == 19
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kept_layouts_follow_the_evidence_pattern(cuda, dtype):
+    """Alternating two and then three evidence patterns (evidence on 12,
+    2 and 1 of the clique's variables), then staying on the last: a call
+    that repeats the last call's pattern splits nothing; under alternation
+    the first pattern's layouts stay kept and the other's calls split
+    (float32) what they lack; a pattern that stays is kept.  What is kept
+    never exceeds one call's 19 layouts nor ``_kept_bytes_bound``, and
+    every call gives the bits of an engine that saw only its pattern."""
+    tree, values, masks = _big_clique_engine(cuda, seed=5, B=256)
+    names = [f"v{i}" for i in range(18)]
+    pats = [masks] + [jt.batch_masks_sparse(tree.plan, jt.random_evidence_batch(
+        tree.plan, 256, obs, seed=6)) for obs in (names[16:], names[5:6])]
+    want = [tree.engine(device=cuda, dtype=dtype).set_potentials(values)
+            .posterior_batch(m) for m in pats]
+    eng = tree.engine(device=cuda, dtype=dtype).set_potentials(values)
+    bound, k1 = eng._kept_bytes_bound(), fc.factored_masked_contract
+    order = [0, 0, 1, 0, 1, 0, 1, 2, 0, 1, 2] + [2] * 20
+    made, splits = [], []
+    for i in order:
+        misses, split = fc.kept.misses, k1.splits
+        assert _same(eng.posterior_batch(pats[i]), want[i])
+        made.append(fc.kept.misses - misses)
+        splits.append(k1.splits - split)
+        now = eng.describe()["kept_layouts"]
+        assert 0 < now["layouts"] <= 19 and now["bytes"] <= bound
+    assert made[0] == 19 and made[1] == made[3] == made[5] == made[-1] == 0
+    assert all(m <= 19 for m in made)
+    assert splits == (made if dtype == torch.float32 else [0] * len(made))
