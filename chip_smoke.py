@@ -246,8 +246,10 @@ def profile_step(fn, steps: int = 5):
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
+    # the program's spans lie on the device lanes too (user annotations)
     rows = [(e.key, e.count / steps, e.device_time_total / steps / 1e3)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
     rows.sort(key=lambda r: -r[2])
     profile_step.copies = sum(n for k, n, _ in rows if "copy" in k.lower())
     return (sum(r[2] for r in rows), sum(r[1] for r in rows),

@@ -49,6 +49,7 @@ from .ops.semirings import (
     _broadcast_to_scope,
 )
 from .schedule import Plan
+from .utils.timing import TIMERS
 
 
 def _combine_into_scope(
@@ -379,7 +380,8 @@ def _bcontract(semiring, operands, operand_vars, out_vars):
     iff any operand has it."""
     batched = any(vs and vs[0] == BATCH for vs in operand_vars)
     out = ([BATCH] + list(out_vars)) if batched else list(out_vars)
-    return semiring.contract(operands, operand_vars, out), batched
+    with TIMERS.span("route.einsum"):
+        return semiring.contract(operands, operand_vars, out), batched
 
 
 def _try_big_clique_route(plan, semiring, ops, ovs, out_vars, min_states,
@@ -474,8 +476,9 @@ def _try_big_clique_route(plan, semiring, ops, ovs, out_vars, min_states,
     masks: Dict[int, torch.Tensor] = {}
     for o, x in batched:
         masks[x] = o if x not in masks else masks[x] * o
-    out = big_clique_sep_message(pot, scope, masks, list(out_vars), msgs=msgs,
-                                 contract_fn=contract_fn)
+    with TIMERS.span("route.big_clique", states=states):
+        out = big_clique_sep_message(pot, scope, masks, list(out_vars),
+                                     msgs=msgs, contract_fn=contract_fn)
     if squeeze:
         return out[0], False
     return out, True
@@ -842,7 +845,9 @@ class BatchedProgramBuilder:
             )
         for s in self.steps:
             if kinds is None or s[0] in kinds:
-                self._run_step(s, st, pots, masks, B, storage)
+                # at: the clique (up, down) or the variable (marg)
+                with TIMERS.span("program.step", kind=s[0], at=s[1]):
+                    self._run_step(s, st, pots, masks, B, storage)
         return st
 
     def full(self):
@@ -965,19 +970,20 @@ def _normalize(semiring: Semiring, margs: Sequence[torch.Tensor]):
     """Per-variable posteriors (linear space) from semiring-space
     marginals.  A row of impossible evidence (all semiring zeros) comes out
     as zeros: in log space its normalizer is -inf and is replaced by 0."""
-    if semiring == SUM_PRODUCT:
-        return [
-            m / m.sum(dim=-1, keepdim=True).clamp_min(_PROG_TINY) for m in margs
-        ]
-    out = []
-    for m in margs:
-        if semiring == MAX_PRODUCT:
-            norm = m.amax(dim=-1, keepdim=True)
-        else:
-            norm = torch.logsumexp(m, dim=-1, keepdim=True)
-        norm = torch.where(torch.isneginf(norm), torch.zeros_like(norm), norm)
-        out.append(torch.exp(m - norm))
-    return out
+    with TIMERS.span("program.normalize"):
+        if semiring == SUM_PRODUCT:
+            return [m / m.sum(dim=-1, keepdim=True).clamp_min(_PROG_TINY)
+                    for m in margs]
+        out = []
+        for m in margs:
+            if semiring == MAX_PRODUCT:
+                norm = m.amax(dim=-1, keepdim=True)
+            else:
+                norm = torch.logsumexp(m, dim=-1, keepdim=True)
+            norm = torch.where(torch.isneginf(norm), torch.zeros_like(norm),
+                               norm)
+            out.append(torch.exp(m - norm))
+        return out
 
 
 class Engine:
@@ -1050,6 +1056,15 @@ class Engine:
     def _place(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=self.compute_dtype, device=self.device)
 
+    def _place_mask(self, x) -> torch.Tensor:
+        """An evidence mask on the engine's device; what comes from the host
+        to another device counts in ``serve.mask_bytes``."""
+        t = self._place(x)
+        if self.device.type != "cpu" and (
+                not isinstance(x, torch.Tensor) or x.device.type == "cpu"):
+            TIMERS.add("serve.mask_bytes", t.numel() * t.element_size())
+        return t
+
     def storage_dtype(self) -> torch.dtype:
         """Dtype of the general serving program's potentials and messages:
         bfloat16 only for a sum-product engine asked for it
@@ -1084,8 +1099,6 @@ class Engine:
         """Evaluate the clique potentials from the factor values (linear
         space) on the host in ``dtype`` (default float64) and install them
         on the device in the engine's dtype."""
-        from .utils.timing import TIMERS
-
         vals = [np.asarray(v, dtype=np.float64) for v in values]
         if self.semiring.is_log:
             with np.errstate(divide="ignore"):
@@ -1112,7 +1125,8 @@ class Engine:
                     % (c, tuple(np.shape(p)), self.plan.clique_shape(c))
                 )
         self._pots_np = [np.asarray(p) for p in pots]
-        self._pots = self._place_pots(self._pots_np)
+        with TIMERS.phase("engine.upload"):
+            self._pots = self._place_pots(self._pots_np)
         # everything derived from the potentials is rebuilt at next use
         self._pots_prog = None
         self._chain_A = None
@@ -1283,11 +1297,11 @@ class Engine:
         ).set_clique_potentials(pots)
 
     def describe(self) -> dict:
-        """Introspection: plan stats, which execution tiers are engaged and
-        the big-clique kernel's launch counters (process-wide, like the
-        phase timers)."""
+        """Introspection: plan stats, which execution tiers are engaged,
+        the big-clique kernel's launch counters and, under ``counters``,
+        every counter of the port by name (``utils.timing.TIMERS``;
+        process-wide, like the phase timers)."""
         from .ops.factored_contract import factored_masked_contract
-        from .utils.timing import TIMERS
 
         st = self.plan.stats()
         st["semiring"] = self.semiring.name
@@ -1313,6 +1327,7 @@ class Engine:
         if self._model_mesh is not None:
             st["tp_fallbacks"] = list(self._tp_notes)
         st["kept_layouts"] = self._kept_now()
+        st["counters"] = TIMERS.counters()
         return st
 
     def _standing(self) -> list:
@@ -1433,39 +1448,42 @@ class Engine:
         return margs, zlin
 
     def _masks_to_program_args(self, mask_batch):
-        if isinstance(mask_batch, dict):
-            ids = sorted(self.plan.table.id_of(k) for k in mask_batch)
-            by_id = {self.plan.table.id_of(k): v for k, v in mask_batch.items()}
-            masks = [self._place(by_id[v]) for v in ids]
-        else:
-            ids = list(range(self.plan.num_vars))
-            masks = [self._place(m) for m in mask_batch]
-        batch_sizes = {int(m.shape[0]) for m in masks}
-        if len(batch_sizes) > 1:
-            raise ValueError(
-                "inconsistent batch sizes across evidence masks: %s"
-                % sorted(batch_sizes)
-            )
-        for v, m in zip(ids, masks):
-            if m.dim() != 2 or m.shape[1] != self.plan.sizes[v]:
+        with TIMERS.span("serve.masks"):
+            if isinstance(mask_batch, dict):
+                ids = sorted(self.plan.table.id_of(k) for k in mask_batch)
+                by_id = {self.plan.table.id_of(k): v
+                         for k, v in mask_batch.items()}
+                masks = [self._place_mask(by_id[v]) for v in ids]
+            else:
+                ids = list(range(self.plan.num_vars))
+                masks = [self._place_mask(m) for m in mask_batch]
+            batch_sizes = {int(m.shape[0]) for m in masks}
+            if len(batch_sizes) > 1:
                 raise ValueError(
-                    "mask for variable %r must be [B, %d], got %r"
-                    % (
-                        self.plan.table.label_of(v),
-                        self.plan.sizes[v],
-                        tuple(m.shape),
-                    )
+                    "inconsistent batch sizes across evidence masks: %s"
+                    % sorted(batch_sizes)
                 )
-        return tuple(ids), masks
+            for v, m in zip(ids, masks):
+                if m.dim() != 2 or m.shape[1] != self.plan.sizes[v]:
+                    raise ValueError(
+                        "mask for variable %r must be [B, %d], got %r"
+                        % (
+                            self.plan.table.label_of(v),
+                            self.plan.sizes[v],
+                            tuple(m.shape),
+                        )
+                    )
+            return tuple(ids), masks
 
     def _general_program(self, ids: tuple, rescale: bool):
         key = ("general", rescale, ids, _CFG.distribute_division)
         fn = self._programs.get(key)
         if fn is None:
-            fn = batched_propagate_program(
-                self.plan, self.semiring, list(ids), rescale=rescale,
-                tp=self._tp(),
-            )
+            with TIMERS.phase("program.build"):
+                fn = batched_propagate_program(
+                    self.plan, self.semiring, list(ids), rescale=rescale,
+                    tp=self._tp(),
+                )
             self._programs[key] = fn
         return fn
 
@@ -1554,7 +1572,8 @@ class Engine:
         if prog is None:
             make = (chain_posterior_parallel_program if parallel
                     else chain_posterior_program)
-            prog = make(self.plan, layout)
+            with TIMERS.phase("program.build"):
+                prog = make(self.plan, layout)
             self._programs[key] = prog
         if self._chain_A is None:
             A = stack_chain_potentials(layout, self._pots_np)
@@ -1587,9 +1606,10 @@ class Engine:
             ]
         prog = self._programs.get(("fused", ids))
         if prog is None:
-            prog = fused_posterior_program(
-                sched, sorted_children, list(ids), device=self.device
-            )
+            with TIMERS.phase("program.build"):
+                prog = fused_posterior_program(
+                    sched, sorted_children, list(ids), device=self.device
+                )
             self._programs[("fused", ids)] = prog
         marg, logz = prog(self._fused_stack, masks)
         return FusedPosteriors(sched, marg), logz
@@ -1632,35 +1652,38 @@ class Engine:
         Returns (posteriors: indexable by var id, each [B, size_v]; logZ:
         [B]) on the engine's device in its compute dtype.  Impossible
         evidence gives zero posteriors and logZ = -inf."""
-        if mode not in ("auto", "general", "fused"):
-            raise ValueError(f"unknown mode {mode!r}")
-        if chunk is not None:
-            chunk = int(chunk)
-            if chunk < 1:
-                raise ValueError("chunk must be >= 1")
-        if self._mask_sharding is not None:
-            return self._rows_sharded("posterior_batch", mask_batch,
-                                      mode=mode, chunk=chunk)
-        self._require_pots(whole=False)
-        ids, masks = self._masks_to_program_args(mask_batch)
-        B = int(masks[0].shape[0]) if masks else 1
-        if chunk is None or B <= chunk:
-            run = getattr(self, "_posterior_" + self._route(mode))
-            return run(ids, masks)
-        posts = [
-            torch.empty((B, s), dtype=self.compute_dtype, device=self.device)
-            for s in self.plan.sizes
-        ]
-        logz = torch.empty((B,), dtype=self.compute_dtype, device=self.device)
-        for lo in range(0, B, chunk):
-            rows = slice(lo, min(lo + chunk, B))
-            post_c, logz_c = self._posterior_general(
-                ids, [m[rows] for m in masks]
-            )
-            for out, p in zip(posts, post_c):
-                out[rows] = p
-            logz[rows] = logz_c
-        return posts, logz
+        with TIMERS.call("serve.posterior_batch"):
+            if mode not in ("auto", "general", "fused"):
+                raise ValueError(f"unknown mode {mode!r}")
+            if chunk is not None:
+                chunk = int(chunk)
+                if chunk < 1:
+                    raise ValueError("chunk must be >= 1")
+            if self._mask_sharding is not None:
+                return self._rows_sharded("posterior_batch", mask_batch,
+                                          mode=mode, chunk=chunk)
+            self._require_pots(whole=False)
+            ids, masks = self._masks_to_program_args(mask_batch)
+            B = int(masks[0].shape[0]) if masks else 1
+            if chunk is None or B <= chunk:
+                run = getattr(self, "_posterior_" + self._route(mode))
+                return run(ids, masks)
+            posts = [
+                torch.empty((B, s), dtype=self.compute_dtype,
+                            device=self.device)
+                for s in self.plan.sizes
+            ]
+            logz = torch.empty((B,), dtype=self.compute_dtype,
+                               device=self.device)
+            for lo in range(0, B, chunk):
+                rows = slice(lo, min(lo + chunk, B))
+                post_c, logz_c = self._posterior_general(
+                    ids, [m[rows] for m in masks]
+                )
+                for out, p in zip(posts, post_c):
+                    out[rows] = p
+                logz[rows] = logz_c
+            return posts, logz
 
     # -- entropy, joint marginals, mutual information --
     def _require_probability_semiring(self, what: str) -> None:
@@ -1901,17 +1924,18 @@ class Engine:
         """(sorted var ids, placed [B, size_v] log masks) of a label-keyed
         mask dict; with no evidence, one all-zeros row on variable 0 so
         that the programs know B."""
-        by_id = {
-            self.plan.table.id_of(k): self._place(v)
-            for k, v in mask_batch.items()
-        }
-        if not by_id:
-            by_id[0] = torch.zeros(
-                (1, self.plan.sizes[0]), dtype=self.compute_dtype,
-                device=self.device,
-            )
-        ids = tuple(sorted(by_id))
-        return ids, [by_id[v] for v in ids]
+        with TIMERS.span("serve.masks"):
+            by_id = {
+                self.plan.table.id_of(k): self._place_mask(v)
+                for k, v in mask_batch.items()
+            }
+            if not by_id:
+                by_id[0] = torch.zeros(
+                    (1, self.plan.sizes[0]), dtype=self.compute_dtype,
+                    device=self.device,
+                )
+            ids = tuple(sorted(by_id))
+            return ids, [by_id[v] for v in ids]
 
     def _chain_log_A(self) -> torch.Tensor:
         """The [m, K, K] log-transition stack of a max-product chain engine
@@ -1933,7 +1957,8 @@ class Engine:
 
             prog = self._programs.get(("viterbi",))
             if prog is None:
-                prog = chain_viterbi_program(self.plan, layout)
+                with TIMERS.phase("program.build"):
+                    prog = chain_viterbi_program(self.plan, layout)
                 self._programs[("viterbi",)] = prog
             logA = self._chain_log_A()
             return lambda masks: prog(logA, dict(zip(ids, masks)))
@@ -1942,7 +1967,8 @@ class Engine:
         key = ("tree_map", ids)
         prog = self._programs.get(key)
         if prog is None:
-            prog = tree_map_program(self.plan, list(ids))
+            with TIMERS.phase("program.build"):
+                prog = tree_map_program(self.plan, list(ids))
             self._programs[key] = prog
         pots = self._require_pots()
         return lambda masks: prog(pots, masks)
@@ -1987,29 +2013,32 @@ class Engine:
         takes the Viterbi loop.  Returns (assignments [B, num_vars]
         ``torch.int32``, scores [B]) on the engine's device; a score below
         -1e29 marks a row with no feasible assignment."""
-        if chunk is not None:
-            chunk = int(chunk)
-            if chunk < 1:
-                raise ValueError("chunk must be >= 1")
-        if self._mask_sharding is not None:
-            return self._rows_sharded("map_assignment_batch", mask_batch,
-                                      chunk=chunk)
-        if self.semiring != MAX_PRODUCT:
-            return self._max_delegate().map_assignment_batch(mask_batch, chunk)
-        self._require_pots(whole=False)
-        ids, masks = self._log_mask_args(mask_batch)
-        run = self._map_program(ids)
-        B = int(masks[0].shape[0])
-        if chunk is None or B <= chunk:
-            return run(masks)
-        assign = torch.empty(
-            (B, self.plan.num_vars), dtype=torch.int32, device=self.device
-        )
-        score = torch.empty((B,), dtype=self.compute_dtype, device=self.device)
-        for lo in range(0, B, chunk):
-            rows = slice(lo, min(lo + chunk, B))
-            assign[rows], score[rows] = run([m[rows] for m in masks])
-        return assign, score
+        with TIMERS.call("serve.map_assignment_batch"):
+            if chunk is not None:
+                chunk = int(chunk)
+                if chunk < 1:
+                    raise ValueError("chunk must be >= 1")
+            if self._mask_sharding is not None:
+                return self._rows_sharded("map_assignment_batch", mask_batch,
+                                          chunk=chunk)
+            if self.semiring != MAX_PRODUCT:
+                return self._max_delegate().map_assignment_batch(
+                    mask_batch, chunk)
+            self._require_pots(whole=False)
+            ids, masks = self._log_mask_args(mask_batch)
+            run = self._map_program(ids)
+            B = int(masks[0].shape[0])
+            if chunk is None or B <= chunk:
+                return run(masks)
+            assign = torch.empty(
+                (B, self.plan.num_vars), dtype=torch.int32, device=self.device
+            )
+            score = torch.empty((B,), dtype=self.compute_dtype,
+                                device=self.device)
+            for lo in range(0, B, chunk):
+                rows = slice(lo, min(lo + chunk, B))
+                assign[rows], score[rows] = run([m[rows] for m in masks])
+            return assign, score
 
     def top_k_assignments(
         self,

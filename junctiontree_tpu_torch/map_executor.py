@@ -31,6 +31,7 @@ import torch
 
 from .executor import clique_mask_vars
 from .schedule import Plan
+from .utils.timing import TIMERS
 
 _NEG = -1e30  # -inf stand-in: a forbidden state scores about -1e30, never NaN
 
@@ -97,10 +98,13 @@ def _layout(plan: Plan):
 def _add(bel: torch.Tensor, x: torch.Tensor, owned: bool) -> torch.Tensor:
     """bel + x (x broadcasts into bel's clique shape); in place once ``bel``
     is a tensor of this program's own with the batch extent of the sum, so
-    that a [B, clique_states] tensor is not alive twice per operand."""
+    that a [B, clique_states] tensor is not alive twice per operand.  A new
+    tensor counts in ``map.materialized_bytes``."""
     if owned and bel.shape[0] >= x.shape[0]:
         return bel.add_(x)
-    return bel + x
+    out = bel + x
+    TIMERS.add("map.materialized_bytes", out.numel() * out.element_size())
+    return out
 
 
 def _masked_potential(plan, c, log_pots, masks, mask_slot, mask_vars):
@@ -166,41 +170,51 @@ def tree_map_program(plan: Plan, observed: Sequence[int]):
         bps: Dict[int, torch.Tensor] = {}
         root_bel = None
         for c in reversed(tree.topo_order):
-            bel = _masked_potential(plan, c, log_pots, masks, mask_slot, cmv[c])
-            owned = bool(cmv[c])
-            for child, s in tree.children[c]:
-                bel = _add(
-                    bel, _child_into_clique(plan, c, svars[s], msgs.pop(child)),
-                    owned,
-                )
-                owned = True
-            if c == tree.root:
-                root_bel = bel
-                continue
-            perm, sep_shape, sepN, restN, _, _ = layout[c]
-            b = bel.shape[0]
-            p2 = bel.permute([0] + [1 + a for a in perm]).reshape(b, sepN, restN)
-            del bel
-            vals, idx = p2.max(dim=-1)
-            del p2
-            msgs[c] = vals.reshape((b,) + sep_shape)
-            bps[c] = idx.to(torch.int32)  # [b, sepN]
+            with TIMERS.span("map.collect", clique=c):
+                bel = _masked_potential(plan, c, log_pots, masks, mask_slot,
+                                        cmv[c])
+                owned = bool(cmv[c])
+                for child, s in tree.children[c]:
+                    bel = _add(
+                        bel,
+                        _child_into_clique(plan, c, svars[s], msgs.pop(child)),
+                        owned,
+                    )
+                    owned = True
+                if c == tree.root:
+                    root_bel = bel
+                    continue
+                perm, sep_shape, sepN, restN, _, _ = layout[c]
+                b = bel.shape[0]
+                p2 = bel.permute([0] + [1 + a for a in perm]).reshape(
+                    b, sepN, restN)
+                if p2.data_ptr() != bel.data_ptr():
+                    TIMERS.add("map.materialized_bytes",
+                               p2.numel() * p2.element_size())
+                del bel
+                vals, idx = p2.max(dim=-1)
+                del p2
+                msgs[c] = vals.reshape((b,) + sep_shape)
+                bps[c] = idx.to(torch.int32)  # [b, sepN]
 
-        # ---- root decode ----
-        flat = root_bel.reshape(root_bel.shape[0], -1)
-        score, ridx = flat.max(dim=-1)
-        if score.shape[0] != B:
-            score, ridx = score.expand(B), ridx.expand(B)
-        assign = torch.zeros((B, plan.num_vars), dtype=torch.int32, device=device)
-        root_dec.write(assign, ridx)
+        with TIMERS.span("map.decode"):
+            # ---- root decode ----
+            flat = root_bel.reshape(root_bel.shape[0], -1)
+            score, ridx = flat.max(dim=-1)
+            if score.shape[0] != B:
+                score, ridx = score.expand(B), ridx.expand(B)
+            assign = torch.zeros((B, plan.num_vars), dtype=torch.int32,
+                                 device=device)
+            root_dec.write(assign, ridx)
 
-        # ---- traceback (pre-order) ----
-        for c in tree.topo_order[1:]:
-            _, _, sepN, _, sep_dec, rest_dec = layout[c]
-            sep_flat = sep_dec.flat(assign)
-            rest_flat = bps.pop(c).expand(B, sepN).gather(1, sep_flat[:, None])
-            rest_dec.write(assign, rest_flat[:, 0].to(torch.int64))
-        return assign, score
+            # ---- traceback (pre-order) ----
+            for c in tree.topo_order[1:]:
+                _, _, sepN, _, sep_dec, rest_dec = layout[c]
+                sep_flat = sep_dec.flat(assign)
+                rest_flat = bps.pop(c).expand(B, sepN).gather(
+                    1, sep_flat[:, None])
+                rest_dec.write(assign, rest_flat[:, 0].to(torch.int64))
+            return assign, score
 
     return fn
 

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
+from ..utils.timing import TIMERS
 from .semirings import SUM_PRODUCT, pinned_precision
 
 # kernel constants; they must match csrc/factored_contract.cu
@@ -501,25 +502,33 @@ def kept(pot: torch.Tensor, key, make):
     another pattern between two of a steady one, or a call that needs a
     layout beyond a call's (a joint beside posteriors), makes its own
     operands and puts none of the steady call's out.  Counts
-    ``kept.hits`` and ``kept.misses``."""
+    ``kept.hits`` and ``kept.misses``, and in ``utils.timing.TIMERS`` the
+    operands put out (``kept.evictions``) and the time of making one for a
+    standing tensor (phase ``k1.split``); notes ``kept`` (found or not) on
+    the open span."""
     entry = _entry(pot)
     if entry is None:
         kept.misses += 1
+        TIMERS.note(kept=False)
         return make()
     ops = entry.ops
     if key in ops:
         ops[key] = (ops[key][0], entry.misses)
         ops.move_to_end(key)
         kept.hits += 1
+        TIMERS.note(kept=True)
         return ops[key][0]
     kept.misses += 1
     entry.misses += 1
-    value = make()
+    TIMERS.note(kept=False)
+    with TIMERS.phase("k1.split"):
+        value = make()
     if len(ops) >= entry.layouts:
         oldest = next(iter(ops))
         if entry.misses - ops[oldest][1] <= entry.layouts:
             return value
         del ops[oldest]
+        TIMERS.add("kept.evictions")
     ops[key] = (value, entry.misses)
     return value
 
@@ -688,9 +697,10 @@ def _launch_kernel(
         return out
     with torch.cuda.device(pot.device):
         op = _operand(lib, pot, cfg, stream)
-        w2, ld_w2 = _tma_rows(w2.to(torch.bfloat16 if bf16 else torch.float32)
-                              .contiguous())
-        w1 = w1.to(torch.float32).contiguous()
+        w2c, ld_w2 = _tma_rows(w2.to(torch.bfloat16 if bf16 else torch.float32)
+                               .contiguous())
+        w2 = _as_launched(w2, w2c)
+        w1 = _as_launched(w1, w1.to(torch.float32).contiguous())
         tiles = cfg["n_b"] * (1 if cfg["by_n"] else cfg["n_n"])
         ws, counters = out, None
         if cfg["nparts"] > 1:
@@ -719,8 +729,8 @@ def _launch_fma(lib, pot, w1, w2, out, cfg, stream) -> None:
     R1, R2, C = (int(d) for d in pot.shape)
     B = int(w1.shape[0])
     pot = pot.permute(1, 0, 2).to(torch.float32).contiguous()
-    w2 = w2.to(torch.float32).contiguous()
-    w1 = w1.to(torch.float32).contiguous()
+    w2 = _as_launched(w2, w2.to(torch.float32).contiguous())
+    w1 = _as_launched(w1, w1.to(torch.float32).contiguous())
     chunk = 4  # floats per 16-byte cp.async
     vec_a = w2.data_ptr() % 16 == 0 and R2 % chunk == 0
     vec_b = pot.data_ptr() % 16 == 0 and (R1 * C) % chunk == 0
@@ -736,6 +746,17 @@ def _launch_fma(lib, pot, w1, w2, out, cfg, stream) -> None:
             B, R1, R2, C, cfg["bn"], cfg["n_b"], cfg["nsplit"],
             cfg["k_per_split"], int(vec_a), int(vec_b), stream)
     _check_rc(lib, rc, out.device, stream)
+
+
+def _as_launched(handed: torch.Tensor, launched: torch.Tensor
+                 ) -> torch.Tensor:
+    """``launched``, a weight operand as the kernel reads it, counted in
+    ``route.materialized_bytes`` where the wrapper copied ``handed`` to make
+    it (another dtype, contiguous rows, an aligned buffer)."""
+    if launched.data_ptr() != handed.data_ptr():
+        TIMERS.add("route.materialized_bytes",
+                   launched.numel() * launched.element_size())
+    return launched
 
 
 def _contract_on_device(pot, w1, w2, backward=False, precision="highest"):
@@ -899,9 +920,12 @@ def kernel_or_plain(pot, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     and bfloat16 on the card (``pot`` a tensor or a
     :class:`StandingLayout`); the plain version for other dtypes there
     (float64 references), and, through the wrapper, off the card."""
-    if pot.is_cuda and pot.dtype not in (torch.float32, torch.bfloat16):
-        return reference_factored_contract(pot, w1, w2)
-    return factored_masked_contract(pot, w1, w2)
+    R1, R2, C = pot.shape
+    with TIMERS.span("k1.launch", R1=R1, R2=R2, C=C, B=w1.shape[0],
+                     dtype=pot.dtype, kept=None):
+        if pot.is_cuda and pot.dtype not in (torch.float32, torch.bfloat16):
+            return reference_factored_contract(pot, w1, w2)
+        return factored_masked_contract(pot, w1, w2)
 
 
 def build_weight_groups(
@@ -1102,6 +1126,8 @@ def big_clique_sep_message(
         n_un = int(np.prod([sizes[v] for v in un_vars])) or 1
         if n_un > 1:
             w2 = w2[:, :, None].expand(B, w2.shape[1], n_un).reshape(B, -1)
+            TIMERS.add("route.materialized_bytes",
+                       w2.numel() * w2.element_size())
     else:
         g1_vars, g2_axes = [], rest
         R1, R2 = 1, R

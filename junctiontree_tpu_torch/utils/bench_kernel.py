@@ -218,8 +218,10 @@ def step_line(dev, dtype) -> dict:
         for _ in range(steps):
             eng.posterior_batch(masks)
         torch.cuda.synchronize()
+    # the program's spans lie on the device lanes too (user annotations)
     rows = [(e.key, e.count / steps, e.device_time_total / steps / 1e3)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
     k1_rows = [r for r in rows if any(k in r[0] for k in K1_KERNELS)]
     return {"step": "posterior_batch, 2^18-state clique, B = 4096",
             "dtype": str(dtype).split(".")[-1],
