@@ -726,15 +726,81 @@ def tree_map_bytes(plan, B, itemsize=4):
                 + st["max_sep_states"] * (itemsize + 8 + 4))
 
 
+def same_collects(eng, masks, what):
+    """Every clique's fused collect against the plain one on the same
+    inputs (``bench_kernel.collect_pairs``): scores bit for bit, the same
+    indices.  Returns the pairs."""
+    import torch
+
+    from junctiontree_tpu_torch.utils.bench_kernel import collect_pairs
+
+    pairs = collect_pairs(eng, masks)
+    for c, fused, plain, _ in pairs:
+        (fv, fi), (pv, pi) = fused(), plain()
+        require(fv.shape == pv.shape and torch.equal(
+            fv.view(torch.int32), pv.view(torch.int32)),
+            f"{what}, clique {c}: the fused collect's scores differ from the "
+            "plain collect's")
+        require(torch.equal(fi.long(), pi.long()),
+                f"{what}, clique {c}: the fused collect's indices differ "
+                "from the plain collect's")
+    return pairs
+
+
+def phase_map_kernel(dev, big):
+    """The fused collect (``csrc/map_collect.cu``) at the MAP cell's shape:
+    the 2^18-state root at B = 4,096 with 12 masks (row 0 impossible),
+    bit for bit against the plain collect on the same inputs, its launches
+    in one ``map_assignment_batch`` call, device times and bound.  Returns
+    the ``kernels`` entry."""
+    import torch
+
+    from junctiontree_tpu_torch.utils.bench_kernel import device_ms
+    from junctiontree_tpu_torch.utils.timing import TIMERS
+
+    eng = big["tree"].engine("max_product", device=dev).set_potentials(
+        big["values"])
+    masks = log_masks(big["masks"])
+    ((_, fused, plain, bound),) = same_collects(eng, masks, "big clique")
+    before = TIMERS.counters()["map.fused_cliques"]
+    eng.map_assignment_batch(masks)
+    launches = TIMERS.counters()["map.fused_cliques"] - before
+    require(launches == 1, f"{launches} fused collects in one big-clique "
+                           "map_assignment_batch, expected 1")
+    ms, plain_ms = device_ms(fused), device_ms(plain, iters=5)
+    B = int(next(iter(masks.values())).shape[0])
+    emit({"phase": "map_kernel_vs_plain", "B": B, "states": 2**18,
+          "masks": len(masks), "scores_bitwise_equal": True,
+          "indices_equal": True, "ms": ms, "plain_ms": plain_ms,
+          "bound_ms": bound, "share_of_bound": bound / ms})
+    del eng
+    torch.cuda.empty_cache()
+    return {
+        "name": "map_collect_kernel (float32, tree-MAP collect)",
+        "route": "cuda",
+        "source": "junctiontree_tpu_torch/csrc/map_collect.cu",
+        "replaces": None,
+        "launches": launches, "max_abs_err": 0.0,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": "operations", "library_ms": None,
+        "per": "one map_assignment_batch call on the big clique, B = 4,096, "
+               "12 masks (%d launch, with a memset and the unpacking of its "
+               "keys)" % launches,
+    }
+
+
 def phase_map(dev, hail, chain, grid, profile):
     """MAP and k-best decoding: the tree-MAP program on hailfinder_like with
-    and without ``chunk=``, the Viterbi loop on the 5,000-chain, and
+    and without ``chunk=`` (every float32 clique collected by the fused
+    kernel, each bit for bit against the plain collect on the same inputs),
+    the Viterbi loop on the 5,000-chain, and
     ``top_k_assignments_batch(k=5)`` on the 8x8 grid."""
     import torch
 
     import junctiontree_tpu_torch as jt
     from junctiontree_tpu_torch.map_executor import tree_map_program
     from junctiontree_tpu_torch.models import chain_bn_model
+    from junctiontree_tpu_torch.utils.timing import TIMERS
 
     # (a) hailfinder_like: the largest power-of-two B up to the posterior
     # phase's 128 whose reckoned peak stays under half the card's memory
@@ -746,11 +812,16 @@ def phase_map(dev, hail, chain, grid, profile):
     masks = log_masks(hail["masks"], B)
     eng = tree.engine("max_product", device=dev).set_potentials(hail["values"])
     k1 = k1_counts_reset()
+    fused = TIMERS.counters()["map.fused_cliques"]
     (assign, score), peak = peak_bytes(lambda: eng.map_assignment_batch(masks))
+    fused = TIMERS.counters()["map.fused_cliques"] - fused
     chunk = max(1, B // 4)
     (c_assign, c_score), c_peak = peak_bytes(
         lambda: eng.map_assignment_batch(masks, chunk=chunk))
     require(k1.launches == 0, "tree MAP launched the big-clique kernel")
+    require(fused == len(plan.clique_vars),
+            f"tree MAP collected {fused} of {len(plan.clique_vars)} float32 "
+            "cliques with the fused kernel")
     require(assign.dtype == torch.int32
             and tuple(assign.shape) == (B, plan.num_vars), "MAP assignment")
     require(torch.equal(c_score, score) and torch.equal(c_assign, assign),
@@ -772,6 +843,7 @@ def phase_map(dev, hail, chain, grid, profile):
                 f"MAP row {b}: score {s_host[b]} below the argmax assignment's {other}")
         beaten += bool(s_host[b] > other + 1e-4 * abs(s_host[b]))
     require(worst <= 1e-5, f"MAP: score_assignment differs from the score ({worst})")
+    same_collects(eng, masks, "hailfinder_like")
     t = step_ms(lambda: eng.map_assignment_batch(masks), iters=3, warmup=1)
     t_c = step_ms(lambda: eng.map_assignment_batch(masks, chunk=chunk),
                   iters=3, warmup=1)
@@ -782,7 +854,9 @@ def phase_map(dev, hail, chain, grid, profile):
             "chunked_equal": True, "rows_scored": len(checked),
             "max_rel_err_score_assignment": worst,
             "rows_strictly_above_posterior_argmax": int(beaten),
-            "kernel_launches": k1.launches}
+            "kernel_launches": k1.launches,
+            "fused_cliques": fused, "cliques": len(plan.clique_vars),
+            "collects_bitwise_equal_plain": len(plan.clique_vars)}
     if profile:
         busy, n_kernels, top = profile_step(
             lambda: eng.map_assignment_batch(masks), steps=2)
@@ -2034,8 +2108,13 @@ def phase_memory(dev, hail, big):
         require(rises[1] + held > budget,
                 f"{task}: {rises[1] + held} bytes at 2B = {2 * B}, inside the "
                 "budget: the estimate is not the largest power of two")
-        reckoned = 4 * (eng.ROW_CLIQUES[task] * plan.stats()["max_clique_states"]
-                        + 2 * seps)
+        # float32 tree-MAP on the card: the fused collect holds no [B,
+        # clique] tensor; a row is its messages and backpointers, and the
+        # 8-byte keys of the largest separator while it is collected
+        st = plan.stats()
+        reckoned = (4 * (eng.ROW_CLIQUES[task] * st["max_clique_states"]
+                         + 2 * seps) if task == "posterior"
+                    else 4 * 2 * seps + 8 * st["max_sep_states"])
         line.update({f"{task}_B": B, f"{task}_kept_bytes_bound": kept,
                      f"{task}_bytes_at_B": rises[0] + held,
                      f"{task}_bytes_at_2B": rises[1] + held,
@@ -2530,12 +2609,12 @@ def run() -> int:
     mma = cuda_build.tensor_core_op_counts()
     # the tensor-core kernels (bf16, and float32 at "highest" and "default",
     # three epilogues each) run wgmma (HGMMA) fed by the Tensor Memory
-    # Accelerator (UTMALDG); the narrow float32 kernel (N <= 32) and the pot
-    # split run no tensor-core operation; no other kernel is left (the
-    # contraction kernels add their own r2 partials)
+    # Accelerator (UTMALDG); the narrow float32 kernel (N <= 32), the pot
+    # split and the tree-MAP collect run no tensor-core operation; no other
+    # kernel is left (the contraction kernels add their own r2 partials)
     tc_kinds = {src + epi for src in ("bf16", "f32", "f32_default")
                 for epi in ("_by_c", "_fold", "_smem")} | {"f32_fold_pairs"}
-    require(tc_kinds | {"f32_narrow", "split"} == set(sass),
+    require(tc_kinds | {"f32_narrow", "split", "map_collect"} == set(sass),
             f"unexpected kernels in the library: {sorted(sass)}")
     require(all(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0
                 for k, ops in sass.items() if k in tc_kinds),
@@ -2893,6 +2972,7 @@ def run() -> int:
 
     # -- 7. the query surfaces beyond posteriors ------------------------------
     phase_map(dev, hail, chain, grid, profile)
+    map_kernel = phase_map_kernel(dev, big)
     chain_model = chain[:2]
     del chain, grid, post
     hail["post"] = None
@@ -2970,7 +3050,7 @@ def run() -> int:
         "library_ms": None,
         "per": "an engine's first big-clique posterior_batch, float32 (%d "
                "launches; later calls read the kept planes)" % splits,
-    }]})
+    }, map_kernel]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -2006,11 +2006,15 @@ class Engine:
 
         ``mask_batch``: dict {var label: [B, size_v]} of LOG-space masks
         (0 / -inf).  ``chunk``: serve a batch of more than ``chunk`` rows in
-        row slices of that many (the tree-MAP program materializes
-        [B, clique_states] score tensors for the backpointer argmax, so MAP
-        capacity is batch-bound like the posterior program's); rows are
-        independent, the last slice is simply shorter, and a chain still
-        takes the Viterbi loop.  Returns (assignments [B, num_vars]
+        row slices of that many; rows are independent, the last slice is
+        simply shorter, and a chain still takes the Viterbi loop.  On the
+        CPU, and for other dtypes than float32, the tree-MAP program
+        materializes [B, clique_states] score tensors for the backpointer
+        argmax, so there ``chunk`` bounds memory; a float32 tree-MAP on the
+        card collects each clique with the fused kernel
+        (``ops.map_collect``) and materializes no such tensor, so there
+        ``chunk`` bounds it no more (the [B, sep_states] backpointers
+        remain).  Returns (assignments [B, num_vars]
         ``torch.int32``, scores [B]) on the engine's device; a score below
         -1e29 marks a row with no feasible assignment."""
         with TIMERS.call("serve.map_assignment_batch"):
@@ -2149,8 +2153,12 @@ class Engine:
         are reckoned for eager torch: ``ROW_CLIQUES[task]`` times the
         largest clique's states (the products of the planned pairwise
         einsums on it) plus two messages per separator, in the storage
-        dtype; ``task`` is "posterior" (``posterior_batch``) or "map"
-        (``map_assignment_batch``).  ``live_messages`` is accepted for the
+        dtype; a float32 tree-MAP on the card reckons no clique term (its
+        fused collect holds no [B, clique] tensor) but the largest
+        separator's 8-byte keys, which the kernel folds into while that
+        separator's message and pointers exist.  ``task`` is "posterior"
+        (``posterior_batch``) or "map" (``map_assignment_batch``).
+        ``live_messages`` is accepted for the
         JAX package's signature and must be None: its reckoning (n tensors
         of [B, max_sep_states] alive, nothing standing) under-counts what
         eager torch keeps several times over.
@@ -2168,8 +2176,16 @@ class Engine:
                 "eager torch's peak; pass analysis= from a measured step")
         seps = sum(_vars_states(self.plan.sizes, vs)
                    for vs in self.plan.tree.separators)
+        cliques, keys = self.ROW_CLIQUES[task], 0
+        if task == "map" and self._chain_layout() is None:
+            from .ops import map_collect
+
+            if map_collect.engages(self.compute_dtype, self.device):
+                # the fused collect: no [B, clique] tensor; the largest
+                # separator's 64-bit keys beside its message and pointers
+                cliques, keys = 0.0, 8 * st["max_sep_states"]
         per_query = itemsize * int(
-            self.ROW_CLIQUES[task] * st["max_clique_states"] + 2 * seps)
+            cliques * st["max_clique_states"] + 2 * seps) + keys
         held = itemsize * st["total_clique_states"] + self._kept_bytes_bound()
         if analysis is not None:
             headroom = budget_bytes - int(analysis["temp_bytes"])

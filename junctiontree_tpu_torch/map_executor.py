@@ -24,23 +24,18 @@ traceback.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .executor import clique_mask_vars
+from .ops import map_collect
+from .ops.map_collect import _strides
 from .schedule import Plan
 from .utils.timing import TIMERS
 
 _NEG = -1e30  # -inf stand-in: a forbidden state scores about -1e30, never NaN
-
-
-def _strides(shape) -> List[int]:
-    st = [1] * len(shape)
-    for i in range(len(shape) - 2, -1, -1):
-        st[i] = st[i + 1] * shape[i + 1]
-    return st
 
 
 class _Decoder:
@@ -138,6 +133,60 @@ def _child_into_clique(plan, c, sep, m, trailing: int = 0):
     return src.reshape(expand)
 
 
+def _fused_layouts(plan, cmv, layout) -> Dict[int, "map_collect.CliqueLayout"]:
+    """Each clique as the fused kernel reads it: its states in the (sep,
+    rest) order of ``layout`` (the root: its own order), masks ``cmv[c]``,
+    children's separators in ``tree.children[c]`` order."""
+    tree, cvars = plan.tree, plan.clique_vars
+    out = {}
+    for c in tree.topo_order:
+        lay = layout.get(c)
+        order = cvars[c] if lay is None else [cvars[c][a] for a in lay[0]]
+        out[c] = map_collect.CliqueLayout(
+            plan.sizes, cvars[c], order, 1 if lay is None else lay[2], cmv[c],
+            [plan.sep_vars[s] for _, s in tree.children[c]])
+    return out
+
+
+def _collect_plain(plan, c, log_pots, masks, mask_slot, mask_vars, kids,
+                   lay):
+    """Clique ``c``'s max-product collect the plain way (on the CPU, and for
+    other dtypes than float32): its masked potential plus its children's
+    messages (``kids``: (separator variables, [b, sep_states] message)
+    pairs in ``tree.children[c]`` order) as a [b, *clique] tensor, then the
+    max.  ``lay``: the clique's ``_layout`` entry, None at the root.
+    Returns ([b] scores, [b] flat argmax) at the root, else the message and
+    the int32 backpointers, [b, sep_states] each."""
+    bel = _masked_potential(plan, c, log_pots, masks, mask_slot, mask_vars)
+    owned = bool(mask_vars)
+    for sep, m in kids:
+        m = m.reshape((m.shape[0],) + tuple(plan.sizes[v] for v in sep))
+        bel = _add(bel, _child_into_clique(plan, c, sep, m), owned)
+        owned = True
+    b = bel.shape[0]
+    if lay is None:
+        return bel.reshape(b, -1).max(dim=-1)
+    perm, _, sepN, restN, _, _ = lay
+    p2 = bel.permute([0] + [1 + a for a in perm]).reshape(b, sepN, restN)
+    if p2.data_ptr() != bel.data_ptr():
+        TIMERS.add("map.materialized_bytes", p2.numel() * p2.element_size())
+    del bel
+    vals, idx = p2.max(dim=-1)
+    return vals, idx.to(torch.int32)
+
+
+def _collect_fused(fl, pot, masks, kids, root):
+    """The same collect by the fused kernel (``ops.map_collect``), with no
+    [b, *clique] tensor: the message and the backpointers are transposes
+    of the kernel's [sep_states, b] outputs."""
+    vals, idx = map_collect.collect(fl, pot, masks, [m for _, m in kids])
+    TIMERS.add("map.fused_cliques", 1)
+    TIMERS.add("map.fused_states", vals.shape[1] * fl.states)
+    if root:
+        return vals[0], idx[0]
+    return vals.t(), idx.t()
+
+
 def tree_map_program(plan: Plan, observed: Sequence[int]):
     """Build ``fn(log_pots, masks) -> (assign [B, num_vars] int32, score [B])``.
 
@@ -149,9 +198,13 @@ def tree_map_program(plan: Plan, observed: Sequence[int]):
     below -1e29 (about -1e30 for violated evidence, -inf where a potential
     is zero), never NaN.
 
-    A clique's [B, clique_states] scores and their (sep, rest)-ordered copy
-    are alive together, and one int32 [B, sep_states] backpointer per clique
-    stays until the traceback; subtrees without evidence stay unbatched."""
+    On the plain path a clique's [B, clique_states] scores and their (sep,
+    rest)-ordered copy are alive together; float32 cliques on a CUDA device
+    (``ops.map_collect.engages``) are collected by the fused kernel without
+    that tensor, with the same adds in the same order (equal scores, the
+    lowest index among equal maxima).  One int32 [B, sep_states]
+    backpointer per clique stays until the traceback; subtrees without
+    evidence stay unbatched."""
     tree = plan.tree
     cvars = plan.clique_vars
     svars = plan.sep_vars
@@ -160,6 +213,7 @@ def tree_map_program(plan: Plan, observed: Sequence[int]):
     cmv = clique_mask_vars(plan, observed)
     layout = _layout(plan)
     root_dec = _Decoder(cvars[tree.root], plan.sizes)
+    fused = _fused_layouts(plan, cmv, layout)
 
     def fn(log_pots: Sequence[torch.Tensor], masks: Sequence[torch.Tensor]):
         B = int(masks[0].shape[0]) if masks else 1
@@ -168,39 +222,26 @@ def tree_map_program(plan: Plan, observed: Sequence[int]):
         # ---- collect: max-product messages + backpointers ----
         msgs: Dict[int, torch.Tensor] = {}
         bps: Dict[int, torch.Tensor] = {}
-        root_bel = None
         for c in reversed(tree.topo_order):
             with TIMERS.span("map.collect", clique=c):
-                bel = _masked_potential(plan, c, log_pots, masks, mask_slot,
-                                        cmv[c])
-                owned = bool(cmv[c])
-                for child, s in tree.children[c]:
-                    bel = _add(
-                        bel,
-                        _child_into_clique(plan, c, svars[s], msgs.pop(child)),
-                        owned,
-                    )
-                    owned = True
+                kids = [(svars[s], msgs.pop(child))
+                        for child, s in tree.children[c]]
+                lay = layout.get(c)
+                if map_collect.engages(log_pots[c].dtype, device):
+                    out = _collect_fused(
+                        fused[c], log_pots[c],
+                        [masks[mask_slot[v]] for v in cmv[c]], kids,
+                        lay is None)
+                else:
+                    out = _collect_plain(plan, c, log_pots, masks, mask_slot,
+                                         cmv[c], kids, lay)
                 if c == tree.root:
-                    root_bel = bel
-                    continue
-                perm, sep_shape, sepN, restN, _, _ = layout[c]
-                b = bel.shape[0]
-                p2 = bel.permute([0] + [1 + a for a in perm]).reshape(
-                    b, sepN, restN)
-                if p2.data_ptr() != bel.data_ptr():
-                    TIMERS.add("map.materialized_bytes",
-                               p2.numel() * p2.element_size())
-                del bel
-                vals, idx = p2.max(dim=-1)
-                del p2
-                msgs[c] = vals.reshape((b,) + sep_shape)
-                bps[c] = idx.to(torch.int32)  # [b, sepN]
+                    score, ridx = out
+                else:
+                    msgs[c], bps[c] = out  # [b, sepN] each
 
         with TIMERS.span("map.decode"):
             # ---- root decode ----
-            flat = root_bel.reshape(root_bel.shape[0], -1)
-            score, ridx = flat.max(dim=-1)
             if score.shape[0] != B:
                 score, ridx = score.expand(B), ridx.expand(B)
             assign = torch.zeros((B, plan.num_vars), dtype=torch.int32,

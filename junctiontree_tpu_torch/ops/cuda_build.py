@@ -26,7 +26,8 @@ import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = [os.path.join(_PKG, "csrc", "factored_contract.cu")]
+SOURCES = [os.path.join(_PKG, "csrc", name)
+           for name in ("factored_contract.cu", "map_collect.cu")]
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -110,6 +111,8 @@ def load_library() -> ctypes.CDLL:
         lib.jt_error_string.restype = ctypes.c_char_p
         lib.jt_max_clusters.argtypes = [i32, i32, i32, i32]
         lib.jt_max_clusters.restype = i32
+        lib.jt_map_collect.argtypes = [p, p, p, p, p, p, p, p, p]
+        lib.jt_map_collect.restype = i32
         _lib = lib
         return lib
 
@@ -141,8 +144,10 @@ def sass_op_counts() -> dict:
     epilogue of the tensor-core kernel (``bf16_by_c``, ``bf16_fold``,
     ``bf16_smem``, ``f32_*``, ``f32_default_*``), ``f32_narrow`` (the
     CUDA-core kernel of narrow float32 products), ``split`` (the float32
-    potential's split into bf16 planes) and ``other`` (any other kernel:
-    none since the contraction kernels add their own partials):
+    potential's split into bf16 planes), ``map_collect`` (the tree-MAP
+    program's fused max-plus collect and its unpacking of keys) and
+    ``other`` (any other kernel: none since the contraction kernels add
+    their own partials):
     ``{kind: {op: count}}``, summed over the kernels of a kind.  {} where
     the toolkit has no cuobjdump."""
     nvcc = _nvcc()
@@ -163,6 +168,8 @@ def sass_op_counts() -> dict:
             kind = "f32_narrow"
         elif "split_pot_kernel" in name:
             kind = "split"
+        elif "map_collect_kernel" in name or "map_decode_kernel" in name:
+            kind = "map_collect"
         else:
             kind = "other"
         mine = counts.setdefault(kind, dict.fromkeys(SASS_OPS, 0))

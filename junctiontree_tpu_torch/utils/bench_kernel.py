@@ -1,6 +1,6 @@
 """Time the factored big-clique kernel alone on one NVIDIA GPU.
 
-    python junctiontree_tpu_torch/utils/bench_kernel.py [--root DIR] [--label NAME] [--step]
+    python junctiontree_tpu_torch/utils/bench_kernel.py [--root DIR] [--label NAME] [--step | --map]
 
 Prints one JSON line per shape and dtype: the serving shapes of the
 2^18-state clique, one model shard of each (``Engine.shard_model`` over 4
@@ -14,7 +14,9 @@ host's own time to queue one call, and a SHA-256 of the output's bytes
 (the inputs come from one seed, so two versions' digests say whether they
 gave the same bits).  Where the package has ``StandingLayout`` (a standing
 potential whose split is kept), also the time and host time of a call that
-reads the kept operand.  ``--step`` adds one line per dtype for a whole
+reads the kept operand.  ``--map`` prints instead the tree-MAP program's
+step and its fused collects against the plain ones (:func:`map_lines`).
+``--step`` adds one line per dtype for a whole
 ``posterior_batch`` of the 2^18-state clique at B = 4096 (step ms, device
 time and launches by kernel from ``torch.profiler``, copy kernels, kernel
 launches and pot splits a steady call).  ``--root`` names another checkout
@@ -86,6 +88,8 @@ def main() -> int:
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--step", action="store_true",
                     help="also profile one posterior_batch of the big clique")
+    ap.add_argument("--map", action="store_true",
+                    help="time only the tree-MAP program and its collects")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -97,6 +101,10 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    if args.map:
+        for line in map_lines(dev):
+            print(json.dumps({"label": args.label, **line}), flush=True)
+        return 0
     g = torch.Generator(device=dev).manual_seed(0)
     for R1, R2, C, B in SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -236,6 +244,129 @@ def step_line(dev, dtype) -> dict:
             "k1_by_kernel": [[next(f for f in K1_KERNELS if f in k), n, ms]
                              for k, n, ms in k1_rows],
             "kernel_launches": launches, "pot_splits": splits}
+
+
+# the card's FP32 lanes and boost clock, and its HBM rate (H100 SXM): the
+# fused collect's bound
+FP32_LANES, SM_CLOCK_HZ, HBM_BYTES_S = 132 * 128, 1.98e9, 3.35e12
+
+
+def collect_bound_ms(b, states, n_addends, operand_bytes) -> float:
+    """The fused collect's bound on the card: the larger of its bytes (the
+    potential, ``operand_bytes`` of masks and messages, and the [b] keys)
+    over the HBM rate and its FP32 instructions (b x states x (addends +
+    one compare)) over the lanes at the boost clock."""
+    return 1e3 * max((4 * states + operand_bytes + 8 * b) / HBM_BYTES_S,
+                     b * states * (n_addends + 1) / (FP32_LANES * SM_CLOCK_HZ))
+
+
+def collect_pairs(eng, masks):
+    """Each clique of the tree-MAP program of ``eng`` (a float32
+    max-product engine on the card) on the log ``masks``, in the program's
+    order: (clique, fused, plain, bound_ms), the fused collect
+    (``map_collect.collect``) and the plain one
+    (``map_executor._collect_plain``) as calls on the same inputs (the
+    children's messages come from the fused collect), each returning
+    (scores, indices) in the plain path's layout."""
+    import torch
+
+    from junctiontree_tpu_torch import map_executor as mx
+    from junctiontree_tpu_torch.ops import map_collect
+
+    plan, tree = eng.plan, eng.plan.tree
+    ids, placed = eng._log_mask_args(masks)
+    cmv = mx.clique_mask_vars(plan, list(ids))
+    lay = mx._layout(plan)
+    fls = mx._fused_layouts(plan, cmv, lay)
+    slot = {v: i for i, v in enumerate(ids)}
+    msgs = {}
+    out = []
+    for c in reversed(tree.topo_order):
+        kids = [(plan.sep_vars[s], msgs.pop(ch)) for ch, s in tree.children[c]]
+        own = [placed[slot[v]] for v in cmv[c]]
+
+        def fused(c=c, own=own, kids=kids):
+            vals, idx = map_collect.collect(fls[c], eng._pots[c], own,
+                                            [m for _, m in kids])
+            if c == tree.root:
+                return vals[0], idx[0].to(torch.int64)
+            return vals.t(), idx.t()
+
+        def plain(c=c, kids=kids):
+            return mx._collect_plain(plan, c, eng._pots, placed, slot, cmv[c],
+                                     kids, lay.get(c))
+
+        vals, _ = fused()
+        if c != tree.root:
+            msgs[c] = vals
+        ops = sum(4 * m.numel() for m in own) + sum(
+            4 * m.numel() for _, m in kids)
+        out.append((c, fused, plain, collect_bound_ms(
+            vals.shape[0], fls[c].states, fls[c].n_addends, ops)))
+    return out
+
+
+def map_lines(dev, B=4096):
+    """``--map``: the tree-MAP program on the card, float32, B = 4,096
+    rows, on the 2^18-state clique (18 binary variables, one-hot masks on
+    12, row 0 impossible) and the 8x8 grid (evidence on every fourth
+    variable): the program's step ms (host clock to a sync, median of 12
+    calls) and device ms, and over its cliques (:func:`collect_pairs`) the
+    sums of the fused and the plain collects' device ms and of their
+    bounds, and whether the two gave the same bits."""
+    import numpy as np
+    import torch
+
+    import junctiontree_tpu_torch as jt
+    from junctiontree_tpu_torch.models import grid_mrf_model
+
+    rng = np.random.default_rng(0)
+    names = [f"v{i}" for i in range(18)]
+    clique = ([names[:]] + [[n] for n in names], {n: 2 for n in names},
+              [rng.random((2,) * 18) + 0.1] + [rng.random(2) + 0.1
+                                                for _ in names], names[:12])
+    gf, gs, gv = grid_mrf_model(8, 8, seed=0)
+    grid = (gf, gs, gv, sorted(gs)[::4])
+    out = []
+    for label, (f, s, v, observed) in (("bigclique18", clique),
+                                       ("grid8x8", grid)):
+        eng = jt.create_junction_tree(f, s).engine(
+            "max_product", device=dev, dtype=torch.float32).set_potentials(v)
+        masks = {}
+        for k in observed:
+            m = np.full((B, s[k]), -np.inf, dtype=np.float32)
+            m[np.arange(B), rng.integers(0, s[k], B)] = 0.0
+            masks[k] = m
+        masks[observed[0]][0] = -np.inf
+
+        def run():
+            return eng.map_assignment_batch(masks)
+
+        run()
+        steps = []
+        for _ in range(12):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0) * 1e3)
+        line = {"map": label, "B": B, "cliques": len(eng.plan.clique_vars),
+                "device": torch.cuda.get_device_name(0),
+                "step_ms": statistics.median(steps),
+                "device_ms": device_ms(run, iters=5),
+                "fused_collects_ms": 0.0, "plain_collects_ms": 0.0,
+                "collects_bound_ms": 0.0, "same_bits": True}
+        for _, fused, plain, bound in collect_pairs(eng, masks):
+            (fv, fi), (pv, pi) = fused(), plain()
+            line["same_bits"] &= bool(
+                torch.equal(fv.view(torch.int32), pv.view(torch.int32))
+                and torch.equal(fi.long(), pi.long()))
+            line["fused_collects_ms"] += device_ms(fused, iters=5)
+            line["plain_collects_ms"] += device_ms(plain, iters=5)
+            line["collects_bound_ms"] += bound
+        out.append(line)
+        del eng
+        torch.cuda.empty_cache()
+    return out
 
 
 if __name__ == "__main__":

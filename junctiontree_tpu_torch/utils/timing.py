@@ -48,6 +48,10 @@ COUNTERS = (
     # masked potential, an out-of-place add) and of the (sep, rest)
     # permuted copy where the permute copies
     "map.materialized_bytes",
+    # cliques of the tree-MAP program collected by the fused kernel
+    # (``ops.map_collect``), and the b x clique_states pairs they covered
+    "map.fused_cliques",
+    "map.fused_states",
     # bytes of the evidence masks the serving entry points place from the
     # host onto the engine's device
     "serve.mask_bytes",

@@ -352,16 +352,17 @@ def test_bf16_kernels_run_on_wgmma_and_tma(cuda):
     bf16 and float32 at both precisions (three epilogues each, and the
     pairwise fold of six passes), holds HGMMA
     and UTMALDG instructions; the narrow float32 kernel (N <= 32, the
-    CUDA-core route the model shards keep) and the pot split hold no
-    tensor-core instruction, and there is no other kernel (the partials of
-    a split r2 sum are added inside the contraction kernels)."""
+    CUDA-core route the model shards keep), the pot split and the tree-MAP
+    program's fused collect hold no tensor-core instruction, and there is
+    no other kernel (the partials of a split r2 sum are added inside the
+    contraction kernels)."""
     from junctiontree_tpu_torch.ops import cuda_build
 
     cuda_build.load_library()
     counts = cuda_build.sass_op_counts()
     tc_kinds = {src + epi for src in ("bf16", "f32", "f32_default")
                 for epi in ("_by_c", "_fold", "_smem")} | {"f32_fold_pairs"}
-    assert tc_kinds | {"f32_narrow", "split"} == set(counts)
+    assert tc_kinds | {"f32_narrow", "split", "map_collect"} == set(counts)
     for kind, ops in counts.items():
         tensor = sum(ops[op] for op in cuda_build.TENSOR_CORE_OPS)
         if kind in tc_kinds:
