@@ -182,12 +182,20 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def mark(stages: Optional[list], name: str):
+    """Ends set-up stage ``name`` now (``time.perf_counter()``), where the
+    caller keeps ``stages``."""
+    if stages is not None:
+        stages.append((name, time.perf_counter()))
+
+
 def run_cell(bench: dict, workload: str, seed: int, seconds: float,
              trace: bool, device, t_start: float, base: str = HERE,
-             root: str = ROOT) -> dict:
+             root: str = ROOT, stages: Optional[list] = None) -> dict:
     """One run; returns the result line (a dict): the driver's keys, then
     ``build_s`` (seconds of the kernel build, 0 where the checkout had it)
-    and, last, ``checks``."""
+    and, last, ``checks``.  Where ``stages`` is a list, each set-up stage
+    appends its name and its end (:func:`mark`)."""
     import torch
 
     import junctiontree_tpu_torch as jt
@@ -196,6 +204,8 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
 
     from portbench import evidence
     from portbench.reference import Reference
+
+    mark(stages, "program import")
 
     entry, cfg, mix = cell(bench, workload, base, root)
     gen = load_module(base, "models", cfg["generator"])
@@ -216,14 +226,19 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
 
         cuda_build.load_library()
         build_s = cuda_build.build_seconds
+    mark(stages, "kernel library")
     TIMERS.reset()
     factors, sizes, values = gen.build(cfg)
+    mark(stages, "model")
     inputs = surface.batches(evidence.pool(seed, mix, sizes))
+    mark(stages, "evidence pool")
     eng = surface.engine(jt, factors, sizes, values, device, cfg)
+    mark(stages, "engine")
     n_pool = len(inputs)
     for i in range(mix["warmup_calls"]):
         surface.call(eng, inputs[i % n_pool])
         _sync(device)
+    mark(stages, "warm-up calls")
     timers = dict(TIMERS.totals)
     setup_peak = torch.cuda.max_memory_allocated(device) if cuda else None
     if cuda:
@@ -339,6 +354,18 @@ def _finite(v):
 
 # -- the command -------------------------------------------------------------
 
+def print_stages(stages: list, start: float, build_s: float):
+    """Each set-up stage's seconds on standard error, from ``start`` (the
+    process's start on ``time.perf_counter()``'s clock); the kernel
+    library's without its build, as ``setup_s`` has it.  They sum to
+    ``setup_s``."""
+    last = start
+    for name, end in stages:
+        sec = end - last - (build_s if name == "kernel library" else 0.0)
+        print(f"setup stage {name}: {sec:.4f} s", file=sys.stderr)
+        last = end
+
+
 def main(argv: List[str], t_start: float) -> int:
     import argparse
 
@@ -370,13 +397,20 @@ def main(argv: List[str], t_start: float) -> int:
               f"torch.cuda.is_available() is {torch.cuda.is_available()}, "
               f"{torch.cuda.device_count()} device(s)", file=sys.stderr)
         return 2
+    # the card's context is made on the engine's first upload, inside the
+    # "engine" stage (and the program's engine.upload phase)
+    stages: list = []
+    mark(stages, "torch import")
+    start = stages[0][1] - (process_seconds() - t_start)
     line = run_cell(bench, args.workload, args.seed, args.seconds,
-                    bool(args.trace), torch.device("cuda", 0), t_start)
+                    bool(args.trace), torch.device("cuda", 0), t_start,
+                    stages=stages)
     found = forbidden_modules()
     if found:
         print(f"portbench: JAX or the JAX package is loaded: {found}",
               file=sys.stderr)
         return 3
+    print_stages(stages, start, line["build_s"])
     for k, c in line["checks"].items():
         print(f"check {k}: {c['value']} (limit {c['limit']})", file=sys.stderr)
     sys.stderr.flush()

@@ -5,6 +5,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -52,6 +53,25 @@ def test_last_line_format(tree, cell, trace):
     for c in line["checks"].values():
         assert set(c) == {"value", "limit"} and c["value"] <= c["limit"]
     json.loads(json.dumps(line))
+
+
+def test_setup_stages_end_in_order_and_sum_to_setup_s(tree, capsys):
+    bench, base, root = tree
+    t0, start = core.process_seconds(), time.perf_counter()
+    stages = []
+    line = core.run_cell(bench, "tinynet-map", SEED, 0.2, False, CPU, t0,
+                         base, root, stages=stages)
+    assert [n for n, _ in stages] == ["program import", "kernel library",
+                                      "model", "evidence pool", "engine",
+                                      "warm-up calls"]
+    ends = [t for _, t in stages]
+    assert ends == sorted(ends) and ends[0] >= start
+    core.print_stages(stages, start, line["build_s"])
+    printed = [float(ln.rsplit(": ", 1)[1][:-2])
+               for ln in capsys.readouterr().err.splitlines()]
+    assert len(printed) == 6 and min(printed) >= 0
+    setup = line["metrics"]["setup_s"]["value"]
+    assert sum(printed) == pytest.approx(setup, abs=0.05)
 
 
 # -- faults planted in the program's serving entry points ---------------------

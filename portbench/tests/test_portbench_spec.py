@@ -49,6 +49,10 @@ def test_names_units_and_entry_keys():
 def test_end_to_end_bounds_and_sources():
     e2e = {m["name"]: m for m in BENCH["end_to_end"]}
     assert e2e["setup_s"]["bound"] == 0.25
+    # the MAP cell's step is host-bound since its collect became one kernel:
+    # its bounds are three times the widest quartile spread of its sets
+    assert e2e["queries_per_s.map"]["bound"] == 0.17
+    assert e2e["step_p95_ms.map"]["bound"] == 0.14
     for m in e2e.values():
         assert 0.01 <= m["bound"] <= 0.25
         assert m["source"] in ("host_clock", "device_trace")
