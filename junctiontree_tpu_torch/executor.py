@@ -20,9 +20,9 @@ Every function takes the semiring (sum-product, log-sum-exp, max-product;
   axis; large sum-product cliques go through the factored big-clique
   contraction (the CUDA kernel on the card, ``ops/factored_contract.py``),
   everything else through the semiring's planned contraction.  In auto mode
-  uniform chains take the forward-backward program of ``scan_executor.py``
-  and regular models of many small cliques the level-fused program of
-  ``fused.py``.
+  uniform chains and hidden Markov models (a uniform chain with leaves)
+  take the forward-backward programs of ``scan_executor.py`` and regular
+  models of many small cliques the level-fused program of ``fused.py``.
 
 PyTorch runs eagerly, so there is no jit and no program cache beyond the
 builder's static schedule.
@@ -1039,6 +1039,8 @@ class Engine:
         self._programs: Dict[tuple, object] = {}
         self._chain: Optional[tuple] = None   # lazy ChainLayout cache
         self._chain_A: Optional[torch.Tensor] = None   # stacked transitions
+        self._hmm: Optional[tuple] = None     # lazy HMMLayout cache
+        self._hmm_stacks = None               # stacked HMM potentials
         self._fused_sched = None              # lazy fused schedule
         self._fused_stack = None              # stacked fused group potentials
         self._max_engine: Optional["Engine"] = None   # cached MAP sibling
@@ -1079,6 +1081,17 @@ class Engine:
 
             self._chain = (ChainLayout.detect(self.plan),)
         return self._chain[0]
+
+    def _hmm_layout(self):
+        """The plan as a hidden Markov model (``scan_executor.HMMLayout``),
+        or None; a uniform chain is not one here (its program is the
+        chain's)."""
+        if self._hmm is None:
+            from .scan_executor import HMMLayout
+
+            self._hmm = (None if self._chain_layout() is not None
+                         else HMMLayout.detect(self.plan),)
+        return self._hmm[0]
 
     # -- reference-parity path: values in, unnormalized factor marginals out --
     def propagate(self, values: Sequence[np.ndarray]) -> List[np.ndarray]:
@@ -1130,6 +1143,7 @@ class Engine:
         # everything derived from the potentials is rebuilt at next use
         self._pots_prog = None
         self._chain_A = None
+        self._hmm_stacks = None
         self._fused_stack = None
         self._max_engine = None
         self._replicas = {}
@@ -1309,6 +1323,7 @@ class Engine:
         st["dtype"] = str(self.dtype).split(".")[-1]
         st["potentials_set"] = self._pots is not None
         st["chain_layout"] = self._chain_layout() is not None
+        st["hmm_layout"] = self._hmm_layout() is not None
         st["cached_programs"] = sorted(str(k[0]) for k in self._programs)
         st["process_phase_totals_s"] = TIMERS.report()
         st["kernel_launches"] = {
@@ -1528,17 +1543,21 @@ class Engine:
         return self._fused_sched
 
     def _route(self, mode: str) -> str:
-        """Which serving program ``posterior_batch`` runs: "chain", "fused"
-        or "general".  Auto mode on a sum-product engine takes the chain
-        program on a uniform chain, and the level-fused program on a model
-        of at least 32 cliques, none above 2^13 states, whose level grouping
-        at least halves the number of per-clique steps."""
+        """Which serving program ``posterior_batch`` runs: "chain", "hmm",
+        "fused" or "general".  Auto mode on a sum-product engine takes the
+        chain program on a uniform chain, the HMM program on a hidden Markov
+        model (``scan_executor.HMMLayout``: a uniform chain whose variables
+        carry leaves), and the level-fused program on a model of at least
+        32 cliques, none above 2^13 states, whose level grouping at least
+        halves the number of per-clique steps."""
         if mode == "fused":
             return "fused"
         if mode == "general" or self.semiring != SUM_PRODUCT:
             return "general"
         if self._chain_layout() is not None:
             return "chain"
+        if self._hmm_layout() is not None:
+            return "hmm"
         st = self.plan.stats()
         if st["num_cliques"] >= 32 and st["max_clique_states"] <= (1 << 13):
             sched = self._fused_schedule()[0]
@@ -1589,6 +1608,23 @@ class Engine:
         stacked, logz = prog(self._chain_A, dict(zip(ids, masks)))
         return StackedPosteriors(stacked, layout.var_order), logz
 
+    def _posterior_hmm(self, ids, masks):
+        """The HMM program: sequential passes, whatever the sequence
+        sharding."""
+        from .scan_executor import hmm_posterior_program, stack_hmm_potentials
+
+        layout = self._hmm_layout()
+        prog = self._programs.get(("hmm",))
+        if prog is None:
+            with TIMERS.phase("program.build"):
+                prog = hmm_posterior_program(self.plan, layout)
+            self._programs[("hmm",)] = prog
+        if self._hmm_stacks is None:
+            with TIMERS.phase("engine.stack"):
+                self._hmm_stacks = stack_hmm_potentials(
+                    layout, self._require_pots())
+        return prog(self._hmm_stacks, dict(zip(ids, masks)))
+
     def _posterior_fused(self, ids, masks):
         from .fused import (
             FusedPosteriors,
@@ -1636,10 +1672,13 @@ class Engine:
         underflow.  Log-space engines run unrescaled and normalize with
         logsumexp (max-product: by the max).
 
-        ``mode``: "auto" takes the chain program on a uniform chain, the
-        level-fused program on regular models of many small cliques, else
-        the general batch-aware program (see ``_route``); "general" and
-        "fused" force a program.
+        ``mode``: "auto" takes the chain program on a uniform chain, its
+        HMM program on a hidden Markov model (a uniform chain whose
+        variables carry leaves: the leaves' evidence folded into the hidden
+        masks, the chain's two passes, the leaves' posteriors from the
+        hidden ones), the level-fused program on regular models of many
+        small cliques, else the general batch-aware program (see
+        ``_route``); "general" and "fused" force a program.
 
         ``chunk``: serve a batch of more than ``chunk`` rows in row slices
         of that many, through the general program, writing into
@@ -2349,9 +2388,7 @@ def cat_rows(parts, device):
     if isinstance(first, torch.Tensor):
         return torch.cat([p.to(device) for p in parts])
     if isinstance(first, StackedPosteriors):
-        return StackedPosteriors(
-            torch.cat([p.stacked.to(device) for p in parts], dim=1),
-            first.var_order)
+        return StackedPosteriors.cat(parts, device)
     if isinstance(first, tuple):
         return tuple(cat_rows([p[k] for p in parts], device)
                      for k in range(len(first)))

@@ -16,18 +16,26 @@ PyTorch runs eagerly, so the two passes are Python loops over preallocated
 The same layout serves exact MAP (``chain_viterbi_program``) and k-best
 decoding (``chain_kbest_program``) in log space: a forward loop of maxima
 with backpointers written into a preallocated stack, then a traceback loop.
+
+A hidden Markov model is a uniform chain with leaves: each leaf variable
+sits in a 2-variable clique with one hidden variable (:class:`HMMLayout`).
+``hmm_posterior_program`` folds the leaves' evidence into the hidden masks
+(one batched product), runs the chain's two passes, and takes every leaf's
+posterior from its hidden variable's (one batched product).
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .ops.semirings import pinned_precision
 from .schedule import Plan
+from .utils.timing import TIMERS
 
 _TINY = 1e-38
 
@@ -182,17 +190,21 @@ def _chain_forward(layout: ChainLayout, A: torch.Tensor, masks):
     Fs = [torch.ones((B, K), dtype=dtype, device=device) if functional
           else F_rows[0]]
     ss = []
-    for k in range(m):
-        f, s = _rescaled_step(Fs[-1] * Ms[k], As[k], F_rows[k + 1], s_rows[k])
-        Fs.append(f)
-        ss.append(s)
-    if functional:
-        F_all, scale = torch.stack(Fs), torch.stack(ss)
-    zfin = (F_all[m] * M[m]).sum(dim=-1)
-    logz = torch.where(
-        zfin > 0, torch.log(zfin.clamp_min(_TINY)),
-        torch.full_like(zfin, -float("inf")),
-    ) + torch.log(scale).sum(dim=0)[:, 0]
+    TIMERS.add("chain.products", m)
+    with TIMERS.span("chain.forward", M=m + 1, B=B, K=K,
+                     products=[[m, B, K, K]]):
+        for k in range(m):
+            f, s = _rescaled_step(Fs[-1] * Ms[k], As[k], F_rows[k + 1],
+                                  s_rows[k])
+            Fs.append(f)
+            ss.append(s)
+        if functional:
+            F_all, scale = torch.stack(Fs), torch.stack(ss)
+        zfin = (F_all[m] * M[m]).sum(dim=-1)
+        logz = torch.where(
+            zfin > 0, torch.log(zfin.clamp_min(_TINY)),
+            torch.full_like(zfin, -float("inf")),
+        ) + torch.log(scale).sum(dim=0)[:, 0]
     return M, F_all, logz, functional
 
 
@@ -218,14 +230,25 @@ def chain_posterior_program(plan: Plan, layout: ChainLayout):
     come back stacked in chain order; :class:`StackedPosteriors` maps var
     ids to positions.  The program is differentiable in ``A``: it updates
     its stacks in place unless ``A`` requires a gradient."""
-    m = len(layout.clique_order)
 
     def fn(A: torch.Tensor, masks):
         with pinned_precision():
-            return _posteriors(A, masks)
+            return _chain_posteriors(layout, A, masks)
 
-    def _posteriors(A, masks):
-        M, F_all, logz, functional = _chain_forward(layout, A, masks)
+    return fn
+
+
+def _chain_posteriors(layout: ChainLayout, A: torch.Tensor, masks):
+    """Forward pass, backward pass and the normalized posteriors of the
+    chain program: (stacked posteriors [m+1, B, K], logZ [B]).  Unless the
+    steps are functional the posteriors are written over the forward
+    stack."""
+    m = len(layout.clique_order)
+    M, F_all, logz, functional = _chain_forward(layout, A, masks)
+    B, K = F_all.shape[1], F_all.shape[2]
+    TIMERS.add("chain.products", m)
+    with TIMERS.span("chain.backward", M=m + 1, B=B, K=K,
+                     products=[[m, B, K, K]]):
         Ats, Ms = A.transpose(1, 2).unbind(0), M.unbind(0)
         G_all = None if functional else torch.empty_like(F_all)
         G_rows = [None] * (m + 1) if functional else G_all.unbind(0)
@@ -241,6 +264,253 @@ def chain_posterior_program(plan: Plan, layout: ChainLayout):
             return post / post.sum(dim=-1, keepdim=True).clamp_min(_TINY), logz
         post = F_all.mul_(M).mul_(G_all)
         return post.div_(post.sum(dim=-1, keepdim=True).clamp_min(_TINY)), logz
+
+
+@dataclass(frozen=True)
+class HMMLayout:
+    """A junction tree recognized as a hidden Markov model: a uniform chain
+    of hidden variables, each carrying zero or more leaf variables.
+
+    chain: the hidden chain as a :class:`ChainLayout` (its cliques only)
+    leaf_vars, leaf_pos, leaf_clique, leaf_transpose: per leaf, its
+        variable id, the chain position of its hidden variable, its
+        clique, and True where the clique's potential must be transposed
+        to (hidden, leaf) layout.  Leaves come grouped by cardinality
+        (ascending); within a group, by their rank among the group's
+        leaves of the same hidden variable, then by position.
+    groups: per cardinality C, (C, first, end) of its slice of the leaves.
+    """
+
+    chain: ChainLayout
+    leaf_vars: List[int]
+    leaf_pos: List[int]
+    leaf_clique: List[int]
+    leaf_transpose: List[bool]
+    groups: List[Tuple[int, int, int]]
+
+    @staticmethod
+    def detect(plan: Plan) -> Optional["HMMLayout"]:
+        """Hidden variables are those in more than one clique, leaves those
+        in one clique only, beside one hidden variable.  The cliques over
+        two hidden variables must form a path of at least one clique over
+        all of them, of one cardinality; a chain end that carries no leaf
+        is then a leaf of its neighbour.  Where a leaf clique hangs in the
+        tree does not matter: the model is the product of the clique
+        potentials."""
+        tree = plan.tree
+        cvs = plan.clique_vars
+        if tree.num_cliques < 2 or any(len(c) != 2 for c in cvs):
+            return None
+        if any(len(s) != 1 for s in tree.separators):
+            return None
+        occ = Counter(v for c in cvs for v in c)
+        hidden = {v for v, n in occ.items() if n > 1}
+        chain_cliques = [c for c, vs in enumerate(cvs)
+                         if vs[0] in hidden and vs[1] in hidden]
+        if (not chain_cliques or len(chain_cliques) != len(hidden) - 1
+                or len({plan.sizes[v] for v in hidden}) != 1):
+            return None
+        adj: Dict[int, List[int]] = {v: [] for v in hidden}
+        for c in chain_cliques:
+            a, b = cvs[c]
+            adj[a].append(c)
+            adj[b].append(c)
+        ends = sorted(v for v, cs in adj.items() if len(cs) == 1)
+        if len(ends) != 2 or any(len(cs) > 2 for cs in adj.values()):
+            return None
+        # walk the hidden path from the end with the smaller id
+        var_order, clique_order, transpose = [ends[0]], [], []
+        prev = -1
+        while len(clique_order) < len(chain_cliques):
+            nxt = [c for c in adj[var_order[-1]] if c != prev]
+            if len(nxt) != 1:
+                return None
+            c = prev = nxt[0]
+            a, b = cvs[c]
+            transpose.append(a != var_order[-1])
+            var_order.append(b if a == var_order[-1] else a)
+            clique_order.append(c)
+        if len(set(var_order)) != len(hidden):
+            return None
+        chain = ChainLayout(var_order, clique_order, transpose,
+                            plan.sizes[ends[0]])
+        pos = {v: k for k, v in enumerate(var_order)}
+        leaves = []       # (card, rank, position, leaf, clique, transpose)
+        rank: Dict[Tuple[int, int], int] = {}
+        for c, (a, b) in enumerate(cvs):
+            if a in hidden and b in hidden:
+                continue
+            h, leaf = (a, b) if a in hidden else (b, a)
+            card = plan.sizes[leaf]
+            r = rank[(card, h)] = rank.get((card, h), -1) + 1
+            leaves.append((card, r, pos[h], leaf, c, a != h))
+        leaves.sort()
+        groups = []
+        for i, lf in enumerate(leaves):
+            if not groups or groups[-1][0] != lf[0]:
+                groups.append([lf[0], i, i])
+            groups[-1][2] = i + 1
+        cols = list(zip(*leaves)) if leaves else [()] * 6
+        return HMMLayout(chain, list(cols[3]), list(cols[2]), list(cols[4]),
+                         list(cols[5]), [tuple(g) for g in groups])
+
+
+@dataclass
+class HMMStacks:
+    """What the HMM program reads of the potentials, stacked on the device
+    once per ``set_potentials`` (:func:`stack_hmm_potentials`).
+
+    A: the hidden chain's [m, K, K] transitions.  R: each leaf's row sums
+    [L, K] (its likelihood when unobserved).  Per leaf group: E, the
+    leaves' [Lg, K, C] potentials in (hidden, leaf) layout, and Ebar, E
+    with each row divided by its sum (zero rows stay zero).  pos: the
+    leaves' chain positions [L] (int64)."""
+
+    A: torch.Tensor
+    R: torch.Tensor
+    E: List[torch.Tensor]
+    Ebar: List[torch.Tensor]
+    pos: torch.Tensor
+
+
+def stack_hmm_potentials(layout: HMMLayout, pots: Sequence[torch.Tensor]):
+    """:class:`HMMStacks` of the clique potentials as the plan evaluated
+    them (a leaf clique that holds a hidden variable's unary or the prior
+    keeps it), on their device."""
+    ch = layout.chain
+    A = torch.stack([pots[c].t() if t else pots[c]
+                     for c, t in zip(ch.clique_order, ch.transpose)])
+    E_all = [pots[c].t() if t else pots[c]
+             for c, t in zip(layout.leaf_clique, layout.leaf_transpose)]
+    R = torch.stack([e.sum(dim=1) for e in E_all]) if E_all else A.new_empty(
+        (0, ch.card))
+    E, Ebar = [], []
+    for _, lo, hi in layout.groups:
+        e = torch.stack(E_all[lo:hi])
+        r = R[lo:hi, :, None]
+        E.append(e)
+        Ebar.append(torch.where(r > 0, e / torch.where(r > 0, r, 1.0), 0.0))
+    pos = torch.as_tensor(layout.leaf_pos, dtype=torch.int64,
+                          device=A.device)
+    return HMMStacks(A, R, E, Ebar, pos)
+
+
+def _scale_rows(target: torch.Tensor, at: Sequence[int], factors) -> None:
+    """``target[at[i]] *= factors[i]`` for every i, rows named more than
+    once included: one gather, product and scatter per round of distinct
+    rows."""
+    rank, seen = [], {}
+    for p in at:
+        rank.append(seen.get(p, 0))
+        seen[p] = rank[-1] + 1
+    for r in range(max(rank, default=-1) + 1):
+        sel = [i for i, k in enumerate(rank) if k == r]
+        rows = torch.as_tensor([at[i] for i in sel], device=target.device)
+        f = factors if len(sel) == len(at) else factors[
+            torch.as_tensor(sel, device=target.device)]
+        target.index_copy_(0, rows, target.index_select(0, rows).mul_(f))
+
+
+def hmm_posterior_program(plan: Plan, layout: HMMLayout):
+    """Build ``fn(stacks, masks) -> (posteriors, logZ [B])`` for an HMM
+    layout: ``stacks`` from :func:`stack_hmm_potentials`, ``masks`` a dict
+    var_id -> [B, card] linear mask of the observed variables, hidden or
+    leaf.  The posteriors map every variable id (:class:`StackedPosteriors`).
+
+    * ``chain.leaves`` (before the passes): the hidden mask stack
+      [m+1, B, K] starts as the unobserved leaves' row sums at each
+      position (not assumed to be 1), is multiplied by the hidden
+      variables' own masks, and by each observed leaf's likelihood
+      ``mask_leaf @ E_leaf^T``, one batched product per leaf cardinality.
+    * ``chain.forward`` / ``chain.backward``: the chain program's rescaled
+      passes over that stack, and the hidden posteriors.
+    * ``chain.leaves`` (after): a leaf's posterior is proportional to
+      (F ⊙ G ⊙ the hidden variable's other masks) @ E_leaf ⊙ its own mask.
+      That is the hidden posterior divided by the leaf's own likelihood:
+      for unobserved leaves the division by the row sums is folded into
+      ``Ebar``, so one batched product over the hidden posteriors serves
+      them all (directly on the posterior stack where the group's first
+      leaves sit one at each position in order); observed leaves divide
+      by their likelihood (where it is 0 so is the posterior) and take a
+      batched product of their own.
+
+    Impossible evidence gives zero posteriors and logZ = -inf."""
+    ch = layout.chain
+    m1, K = len(ch.var_order), ch.card
+    hpos = {v: k for k, v in enumerate(ch.var_order)}
+    leaf_of = {v: i for i, v in enumerate(layout.leaf_vars)}
+    # groups whose leaves' first m1 sit one at each position in order
+    direct = [m1 if hi - lo >= m1 and layout.leaf_pos[lo:lo + m1]
+              == list(range(m1)) else 0 for _, lo, hi in layout.groups]
+
+    def fn(stacks: HMMStacks, masks: Dict[int, torch.Tensor]):
+        with pinned_precision():
+            return _hmm_posteriors(stacks, masks)
+
+    def _hmm_posteriors(st, masks):
+        A = st.A
+        dtype, device = A.dtype, A.device
+        masks = {v: mk.to(dtype=dtype, device=device)
+                 for v, mk in masks.items()}
+        B = next(iter(masks.values())).shape[0] if masks else 1
+        observed = sorted(leaf_of[v] for v in masks if v in leaf_of)
+        unobserved = sorted(set(range(len(leaf_of))) - set(observed))
+        # per group: its observed leaves, their rows in the group's stacks,
+        # their masks [n, B, C], and (filled below) their likelihoods
+        groups = []
+        for C, lo, hi in layout.groups:
+            og = [i for i in observed if lo <= i < hi]
+            rel = mk = None
+            if og:
+                rel = torch.as_tensor([i - lo for i in og], device=device)
+                mk = torch.stack([masks[layout.leaf_vars[i]] for i in og])
+            groups.append([C, lo, hi, og, rel, mk, None])
+        TIMERS.add("chain.leaf_vars", len(leaf_of))
+        cards = [g[0] for g in groups]
+        with TIMERS.span("chain.leaves", M=m1, B=B, K=K, C=cards,
+                         leaves=len(observed),
+                         products=[[len(og), B, C, K]
+                                   for C, _, _, og, _, _, _ in groups if og]):
+            U = torch.ones((m1, K), dtype=dtype, device=device)
+            if unobserved:
+                _scale_rows(U, [layout.leaf_pos[i] for i in unobserved],
+                            st.R[torch.as_tensor(unobserved, device=device)])
+            M = torch.empty((m1, B, K), dtype=dtype, device=device)
+            M.copy_(U[:, None, :])
+            for v, mk in masks.items():
+                if v in hpos:
+                    M[hpos[v]].mul_(mk)
+            for g, grp in enumerate(groups):
+                _, _, _, og, rel, mk, _ = grp
+                if og:
+                    grp[6] = torch.bmm(mk, st.E[g][rel].transpose(1, 2))
+                    _scale_rows(M, [layout.leaf_pos[i] for i in og], grp[6])
+        post, logz = _chain_posteriors(ch, A, M)
+        del M
+        prods = []
+        for C, lo, hi, og, _, _, _ in groups:
+            prods += [[hi - lo, B, K, C]] + ([[len(og), B, K, C]] if og else [])
+        outs = []
+        with TIMERS.span("chain.leaves", M=m1, B=B, K=K, C=cards,
+                         leaves=len(leaf_of), products=prods):
+            for g, (C, lo, hi, og, rel, mk, lam) in enumerate(groups):
+                out = torch.empty((hi - lo, B, C), dtype=dtype, device=device)
+                d = direct[g]
+                if d:
+                    torch.matmul(post, st.Ebar[g][:d], out=out[:d])
+                if hi - lo > d:
+                    torch.matmul(post.index_select(0, st.pos[lo + d:hi]),
+                                 st.Ebar[g][d:], out=out[d:])
+                if og:
+                    x = post.index_select(0, st.pos[lo + rel]).div_(
+                        lam.clamp_min_(_TINY))
+                    out.index_copy_(0, rel, torch.bmm(x, st.E[g][rel]).mul_(mk))
+                outs.append(out.div_(
+                    out.sum(dim=-1, keepdim=True).clamp_min(_TINY)))
+        leaves = {layout.leaf_vars[i]: (outs[g], i - lo)
+                  for g, (_, lo, hi) in enumerate(layout.groups)
+                  for i in range(lo, hi)}
+        return StackedPosteriors(post, ch.var_order, leaves), logz
 
     return fn
 
@@ -454,24 +724,48 @@ def chain_kbest_program(plan: Plan, layout: ChainLayout, k: int):
 
 class StackedPosteriors:
     """Lazy per-variable-id view over the chain program's stacked
-    [m+1, B, K] posterior tensor.  Behaves like the list of tensors the
-    general program returns (``post[var_id]`` -> [B, K])."""
+    [m+1, B, K] posterior tensor, and an HMM's leaves (``leaves``: var id
+    -> (its group's stacked [Lg, B, C] posteriors, its row there)).
+    Behaves like the list of tensors the general program returns
+    (``post[var_id]`` -> [B, card])."""
 
-    def __init__(self, stacked: torch.Tensor, var_order: Sequence[int]):
+    def __init__(self, stacked: torch.Tensor, var_order: Sequence[int],
+                 leaves: Optional[Dict[int, Tuple[torch.Tensor, int]]] = None):
         self._stacked = stacked
         self.var_order = list(var_order)
         self._pos: Dict[int, int] = {v: k for k, v in enumerate(var_order)}
+        self._leaves = leaves or {}
 
     @property
     def stacked(self) -> torch.Tensor:
         return self._stacked
 
     def __len__(self) -> int:
-        return len(self._pos)
+        return len(self._pos) + len(self._leaves)
 
     def __getitem__(self, var_id: int) -> torch.Tensor:
+        if var_id in self._leaves:
+            stack, row = self._leaves[var_id]
+            return stack[row]
         return self._stacked[self._pos[var_id]]
 
     def __iter__(self):
-        for v in range(len(self._pos)):
+        for v in range(len(self)):
             yield self[v]
+
+    @classmethod
+    def cat(cls, parts: Sequence["StackedPosteriors"],
+            device) -> "StackedPosteriors":
+        """``parts`` (one program's results on row blocks) joined along
+        their batch axis on ``device``, the hidden stack and each leaf
+        group's stack alike."""
+        first = parts[0]
+        groups: Dict[int, torch.Tensor] = {}
+        leaves = {}
+        for v, (stack, row) in first._leaves.items():
+            if id(stack) not in groups:
+                groups[id(stack)] = torch.cat(
+                    [p._leaves[v][0].to(device) for p in parts], dim=1)
+            leaves[v] = (groups[id(stack)], row)
+        return cls(torch.cat([p.stacked.to(device) for p in parts], dim=1),
+                   first.var_order, leaves)

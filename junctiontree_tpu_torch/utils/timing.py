@@ -57,6 +57,11 @@ COUNTERS = (
     "serve.mask_bytes",
     # kept K1 layouts put out for another (``ops.factored_contract.kept``)
     "kept.evictions",
+    # [B, K] x [K, K] products of the chain program's forward and backward
+    # passes (``scan_executor``), and the leaf variables whose posteriors
+    # the HMM program gave
+    "chain.products",
+    "chain.leaf_vars",
 )
 
 CALL_RING = 256  # call records kept by ``TIMERS.calls()``
