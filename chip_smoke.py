@@ -47,6 +47,11 @@ contraction on the card launches the kernel; then:
   ``MAX_PRODUCT`` posterior on the sprinkler network;
 * ``chain_serving``: a 5,000-variable chain, B = 1024, auto mode (the
   forward-backward program), held to float64 and to ``mode="general"``;
+* ``chain_step_kernel``: the chain program's step (the library's product
+  and the row kernel) at the HMM cell's shape ([16384, 500] x [500, 500]
+  float32) against the plain five-launch step, the library's product
+  alone and the FP32 bound, and one HMM ``posterior_batch`` at the cell's
+  shape through it, its launches counted, against the plain steps;
 * ``fused_serving``: a 1,000-leaf star, B = 1024, auto mode (the level-fused
   program), and the 8x8 grid, B = 4096, ``mode="fused"`` against
   ``mode="general"``;
@@ -561,6 +566,98 @@ def phase_chain(dev, profile):
         rtol=1e-4, atol=1e-6, logz_atol=1e-3)
     emit(line)
     return long_chain
+
+
+def phase_chain_step_kernel(dev):
+    """The chain program's step (the library's product, then the row kernel
+    of ``csrc/chain_step.cu``) at the HMM cell's shape, [16384, 500] x [500,
+    500] float32: its device ms forward and backward against the plain
+    five-launch step, the library's product alone, the row kernel alone and
+    the FP32 bound (``bench_kernel.chain_lines``), with its errors against
+    the plain step in float32 and float64; then one HMM ``posterior_batch`` at the cell's
+    shape (K = 500, 256 sites, B = 16,384, one site in ten typed, row 0
+    impossible) with its fused steps and launches counted around that call
+    alone, its first 2,048 rows against the same call on the plain steps.
+    Returns the ``kernels`` entry."""
+    import numpy as np
+    import torch
+
+    import junctiontree_tpu_torch as jt
+    from junctiontree_tpu_torch.models.hmm import li_stephens_model, typed_sites
+    from junctiontree_tpu_torch.ops import chain_step
+    from junctiontree_tpu_torch.utils.bench_kernel import chain_lines
+    from junctiontree_tpu_torch.utils.timing import TIMERS
+
+    (line,) = chain_lines(dev)
+    errs = {k: v for k, v in line.items() if "_vs_plain_" in k}
+    # rounding bound of a float32 sum of K = 500 non-negative products,
+    # relative to the largest value (tests/test_torch_chain_step.py)
+    require(all(v <= 2 * 4 * 500 * 2.0**-24 for v in errs.values()),
+            f"chain step against its plain version: {errs}")
+    torch.cuda.empty_cache()
+    K, M, B, rows = 500, 256, 16384, 2048
+    factors, sizes, values = li_stephens_model(K, M, seed=0)
+    eng = jt.create_junction_tree(factors, sizes).engine(
+        device=dev).set_potentials(values)
+    rng = np.random.default_rng(3)
+    masks = {}
+    for y in typed_sites(M, 10):
+        mk = np.zeros((B, 2), dtype=np.float32)
+        mk[np.arange(B), rng.integers(2, size=B)] = 1.0
+        masks[y] = mk
+    masks["y0"][0] = 0.0
+    eng.posterior_batch(masks)  # warm: the pool and the plan
+    torch.cuda.synchronize()
+    before = TIMERS.counters()
+    post, logz = eng.posterior_batch(masks)
+    torch.cuda.synchronize()
+    after = TIMERS.counters()
+    fused = after["chain.fused_steps"] - before["chain.fused_steps"]
+    launches = after["chain_step.launches"] - before["chain_step.launches"]
+    require(fused == launches == 2 * (M - 1),
+            f"HMM posterior_batch: {fused} fused steps, {launches} launches, "
+            f"expected {2 * (M - 1)}")
+    engages = chain_step.engages
+    chain_step.engages = lambda *a: False
+    try:
+        ppost, plogz = eng.posterior_batch(
+            {y: mk[:rows] for y, mk in masks.items()})
+    finally:
+        chain_step.engages = engages
+    require(bool(torch.isneginf(logz[0])) and not bool(post[0][0].any()),
+            "HMM through the kernel: impossible row")
+    ok = torch.isfinite(plogz)
+    lz_err = (logz[:rows][ok] - plogz[ok]).abs().max().item()
+    err = max((post[v][:rows] - ppost[v]).abs().max().item()
+              for v in range(len(post)))
+    require(err <= 1e-4 and lz_err <= 1e-3,
+            f"HMM through the kernel against the plain steps: posteriors "
+            f"{err}, logZ {lz_err}")
+    line.update(phase="chain_step_kernel", hmm_sites=M, hmm_B=B,
+                hmm_fused_steps=fused, hmm_kernel_launches=launches,
+                hmm_rows_vs_plain=rows, hmm_max_abs_err_vs_plain=err,
+                hmm_logz_err_vs_plain=lz_err)
+    emit(line)
+    del eng, post, ppost
+    torch.cuda.empty_cache()
+    return {
+        "name": "chain_rows_kernel (float32, the chain step's row pass)",
+        "route": "cuda",
+        "source": "junctiontree_tpu_torch/csrc/chain_step.cu",
+        "replaces": None,
+        "launches": launches, "max_abs_err": max(errs.values()),
+        "ms": line["step_ms_forward"], "ms_backward":
+            line["step_ms_backward"],
+        "plain_ms": line["plain_ms_forward"],
+        "plain_ms_backward": line["plain_ms_backward"],
+        "bound_ms": line["bound_ms"], "bound_by": "operations",
+        "library_ms": line["library_product_ms"],
+        "per": "ms: one chain step, [16384, 500] x [500, 500] float32, the "
+               "library's product and the row kernel (forward; backward "
+               "with the position's posterior beside it); launches of the "
+               "row kernel: one HMM posterior_batch at K = 500, 256 "
+               "sites, B = 16,384 (2(M - 1) = %d steps)" % (2 * (M - 1)),
+    }
 
 
 def phase_fused(dev, profile):
@@ -2610,11 +2707,13 @@ def run() -> int:
     # the tensor-core kernels (bf16, and float32 at "highest" and "default",
     # three epilogues each) run wgmma (HGMMA) fed by the Tensor Memory
     # Accelerator (UTMALDG); the narrow float32 kernel (N <= 32), the pot
-    # split and the tree-MAP collect run no tensor-core operation; no other
-    # kernel is left (the contraction kernels add their own r2 partials)
+    # split, the tree-MAP collect and the chain program's row pass run no
+    # tensor-core operation; no other kernel is left (the
+    # contraction kernels add their own r2 partials)
     tc_kinds = {src + epi for src in ("bf16", "f32", "f32_default")
                 for epi in ("_by_c", "_fold", "_smem")} | {"f32_fold_pairs"}
-    require(tc_kinds | {"f32_narrow", "split", "map_collect"} == set(sass),
+    require(tc_kinds | {"f32_narrow", "split", "map_collect",
+                        "chain_step"} == set(sass),
             f"unexpected kernels in the library: {sorted(sass)}")
     require(all(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0
                 for k, ops in sass.items() if k in tc_kinds),
@@ -2967,6 +3066,7 @@ def run() -> int:
     hail.update(post=post, peak=peak)
     del hail["ref_post"], hail["ref_logz"]
     chain = phase_chain(dev, profile)
+    chain_kernel = phase_chain_step_kernel(dev)
     grid = phase_fused(dev, profile)
     phase_chunked(dev, eng, plan, grid)
 
@@ -3050,7 +3150,7 @@ def run() -> int:
         "library_ms": None,
         "per": "an engine's first big-clique posterior_batch, float32 (%d "
                "launches; later calls read the kept planes)" % splits,
-    }, map_kernel]})
+    }, map_kernel, chain_kernel]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

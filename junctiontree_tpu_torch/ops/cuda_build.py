@@ -27,7 +27,8 @@ import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = [os.path.join(_PKG, "csrc", name)
-           for name in ("factored_contract.cu", "map_collect.cu")]
+           for name in ("factored_contract.cu", "map_collect.cu",
+                        "chain_step.cu")]
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -113,6 +114,8 @@ def load_library() -> ctypes.CDLL:
         lib.jt_max_clusters.restype = i32
         lib.jt_map_collect.argtypes = [p, p, p, p, p, p, p, p, p]
         lib.jt_map_collect.restype = i32
+        lib.jt_chain_rows.argtypes = [p, p, p, p, i64, i64, i32, i32, p]
+        lib.jt_chain_rows.restype = i32
         _lib = lib
         return lib
 
@@ -145,7 +148,8 @@ def sass_op_counts() -> dict:
     ``bf16_smem``, ``f32_*``, ``f32_default_*``), ``f32_narrow`` (the
     CUDA-core kernel of narrow float32 products), ``split`` (the float32
     potential's split into bf16 planes), ``map_collect`` (the tree-MAP
-    program's fused max-plus collect and its unpacking of keys) and
+    program's fused max-plus collect and its unpacking of keys),
+    ``chain_step`` (the row pass of the chain program's step) and
     ``other`` (any other kernel: none since the contraction kernels add
     their own partials):
     ``{kind: {op: count}}``, summed over the kernels of a kind.  {} where
@@ -170,6 +174,8 @@ def sass_op_counts() -> dict:
             kind = "split"
         elif "map_collect_kernel" in name or "map_decode_kernel" in name:
             kind = "map_collect"
+        elif "chain_rows_kernel" in name:
+            kind = "chain_step"
         else:
             kind = "other"
         mine = counts.setdefault(kind, dict.fromkeys(SASS_OPS, 0))

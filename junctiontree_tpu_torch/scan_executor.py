@@ -11,7 +11,12 @@ pass, with per-step rescaling so everything stays in linear space
   posterior(v_k) ∝ F_k ⊙ M_k ⊙ G_k;   logZ = log Σ_p F_m M_m + offsets
 
 PyTorch runs eagerly, so the two passes are Python loops over preallocated
-``[m+1, B, K]`` stacks, a handful of small device operations per step.
+``[m+1, B, K]`` stacks, a handful of small device operations per step.  In
+float32 on the card a step is two launches (``ops.chain_step``: the
+product, then one row kernel for the row maximum, the divide and the next
+product's mask multiply), and the backward pass writes each position's
+posterior as it goes, keeping the backward messages in two [B, K] buffers
+in turn.
 
 The same layout serves exact MAP (``chain_viterbi_program``) and k-best
 decoding (``chain_kbest_program``) in log space: a forward loop of maxima
@@ -33,6 +38,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .ops import chain_step
 from .ops.semirings import pinned_precision
 from .schedule import Plan
 from .utils.timing import TIMERS
@@ -146,6 +152,15 @@ def _rescaled_step(x, mat, out=None, s_out=None):
     return torch.div(y, s, out=out), s
 
 
+def _fused(A: torch.Tensor, functional: bool) -> bool:
+    """Whether the chain program's steps over the transitions ``A`` [m, K,
+    K] run the row kernel (``ops.chain_step``): steps that write into the
+    stacks in place (no gradient through ``A``), float32 on a CUDA device,
+    K at most ``chain_step.K_MAX``."""
+    return not functional and chain_step.engages(A.dtype, A.device,
+                                                 A.shape[-1])
+
+
 def _stack_masks(layout: ChainLayout, masks, dtype, device) -> torch.Tensor:
     """The [m+1, B, K] chain-order mask stack of a dict var_id -> [B, K]
     mask (unobserved positions all ones), or a prestacked one as given."""
@@ -171,18 +186,27 @@ def _chain_forward(layout: ChainLayout, A: torch.Tensor, masks):
     with the stacked masks ``M`` and forward messages ``F_all``, both
     [m+1, B, K].  When ``A`` requires a gradient (and gradients are on) every
     step is functional and the stacks are ``torch.stack`` of the steps; else
-    the steps write into preallocated stacks in place."""
+    the steps write into preallocated stacks in place, and where they run
+    the row kernel (:func:`_fused`) ``F_all[k]`` holds F_k ⊙ M_k for k < m:
+    the next product's operand, and what the backward pass's posterior
+    reads."""
     m = len(layout.clique_order)
     dtype, device = A.dtype, A.device
     M = _stack_masks(layout, masks, dtype, device)
     B, K = M.shape[1], M.shape[2]
     functional = A.requires_grad and torch.is_grad_enabled()
+    fused = _fused(A, functional)
+    if fused:  # the kernel reads whole contiguous rows
+        M = M.contiguous()
     F_all = scale = None
     F_rows = s_rows = [None] * (m + 1)
     if not functional:
         F_all = torch.empty((m + 1, B, K), dtype=dtype, device=device)
         scale = torch.empty((m, B, 1), dtype=dtype, device=device)
-        F_all[0] = 1.0
+        if fused and m:  # F_0 ⊙ M_0
+            F_all[0].copy_(M[0])
+        else:
+            F_all[0] = 1.0
         F_rows, s_rows = F_all.unbind(0), scale.unbind(0)
     # one unbind each, not one index per step (and per backward step)
     Ms, As = M.unbind(0), A.unbind(0)
@@ -191,9 +215,16 @@ def _chain_forward(layout: ChainLayout, A: torch.Tensor, masks):
           else F_rows[0]]
     ss = []
     TIMERS.add("chain.products", m)
+    if fused:
+        TIMERS.add("chain.fused_steps", m)
     with TIMERS.span("chain.forward", M=m + 1, B=B, K=K,
                      products=[[m, B, K, K]]):
         for k in range(m):
+            if fused:
+                chain_step.forward_step(F_rows[k], As[k], Ms[k + 1]
+                                        if k + 1 < m else None,
+                                        F_rows[k + 1], s_rows[k])
+                continue
             f, s = _rescaled_step(Fs[-1] * Ms[k], As[k], F_rows[k + 1],
                                   s_rows[k])
             Fs.append(f)
@@ -246,9 +277,26 @@ def _chain_posteriors(layout: ChainLayout, A: torch.Tensor, masks):
     m = len(layout.clique_order)
     M, F_all, logz, functional = _chain_forward(layout, A, masks)
     B, K = F_all.shape[1], F_all.shape[2]
+    fused = _fused(A, functional)
     TIMERS.add("chain.products", m)
+    if fused:
+        TIMERS.add("chain.fused_steps", m)
     with TIMERS.span("chain.backward", M=m + 1, B=B, K=K,
                      products=[[m, B, K, K]]):
+        if fused:
+            # M_k ⊙ G_k lives until step k - 1 has read it: two [B, K]
+            # buffers in turn; each step writes position k's posterior over
+            # F_k ⊙ M_k, which the forward pass left in F_k's place
+            G = torch.empty((2, B, K), dtype=F_all.dtype, device=F_all.device)
+            F_rows, Ms, As = F_all.unbind(0), M.unbind(0), A.unbind(0)
+            for k in range(m - 1, -1, -1):  # M_m ⊙ G_m = M_m
+                chain_step.backward_step(G[(k + 1) % 2] if k < m - 1
+                                         else Ms[m], As[k],
+                                         Ms[k] if k else None, G[k % 2],
+                                         F_rows[k])
+            last = F_all[m].mul_(M[m])
+            last.div_(last.sum(dim=-1, keepdim=True).clamp_min(_TINY))
+            return F_all, logz
         Ats, Ms = A.transpose(1, 2).unbind(0), M.unbind(0)
         G_all = None if functional else torch.empty_like(F_all)
         G_rows = [None] * (m + 1) if functional else G_all.unbind(0)

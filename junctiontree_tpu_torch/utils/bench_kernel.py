@@ -1,6 +1,6 @@
 """Time the factored big-clique kernel alone on one NVIDIA GPU.
 
-    python junctiontree_tpu_torch/utils/bench_kernel.py [--root DIR] [--label NAME] [--step | --map]
+    python junctiontree_tpu_torch/utils/bench_kernel.py [--root DIR] [--label NAME] [--step | --map | --chain]
 
 Prints one JSON line per shape and dtype: the serving shapes of the
 2^18-state clique, one model shard of each (``Engine.shard_model`` over 4
@@ -15,7 +15,9 @@ host's own time to queue one call, and a SHA-256 of the output's bytes
 gave the same bits).  Where the package has ``StandingLayout`` (a standing
 potential whose split is kept), also the time and host time of a call that
 reads the kept operand.  ``--map`` prints instead the tree-MAP program's
-step and its fused collects against the plain ones (:func:`map_lines`).
+step and its fused collects against the plain ones (:func:`map_lines`),
+``--chain`` the chain program's step (the library's product and the row
+kernel) against its plain five-launch step (:func:`chain_lines`).
 ``--step`` adds one line per dtype for a whole
 ``posterior_batch`` of the 2^18-state clique at B = 4096 (step ms, device
 time and launches by kernel from ``torch.profiler``, copy kernels, kernel
@@ -90,6 +92,8 @@ def main() -> int:
                     help="also profile one posterior_batch of the big clique")
     ap.add_argument("--map", action="store_true",
                     help="time only the tree-MAP program and its collects")
+    ap.add_argument("--chain", action="store_true",
+                    help="time only the chain program's step")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -101,8 +105,8 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    if args.map:
-        for line in map_lines(dev):
+    if args.map or args.chain:
+        for line in (map_lines(dev) if args.map else chain_lines(dev)):
             print(json.dumps({"label": args.label, **line}), flush=True)
         return 0
     g = torch.Generator(device=dev).manual_seed(0)
@@ -367,6 +371,100 @@ def map_lines(dev, B=4096):
         del eng
         torch.cuda.empty_cache()
     return out
+
+
+FP32_TFLOPS = 66.9  # one H100 SXM's FP32 FMA rate on the CUDA cores
+
+
+def chain_lines(dev, B=16384, K=500):
+    """``--chain``: one chain step at the HMM cell's shape ([B, K] x [K, K],
+    float32, TF32 off): the step's device ms forward and backward
+    (``ops.chain_step``: the library's product, then the row kernel), the
+    plain step's five launches (``_rescaled_step`` and its mask multiply)
+    and, backward, the plain posterior of one position beside it, the
+    library's product alone (``torch.matmul``, A and its transposed view),
+    the row kernel alone, and the FP32 bound of the product; with the
+    step's largest error against its plain version in float32 and in
+    float64 on the same inputs, over max |plain|.  The inputs: a
+    row-stochastic A, masks in [0, 1] and messages in (0, 1]."""
+    import torch
+
+    from junctiontree_tpu_torch.ops import chain_step
+    from junctiontree_tpu_torch.scan_executor import _rescaled_step
+
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    A = rand(K, K)
+    A /= A.sum(dim=1, keepdim=True)
+    F, M, Gn, Mp = rand(B, K), rand(B, K), rand(B, K), rand(B, K)
+    FM, XM, MG = F * Mp, F * M, M * Gn
+    out, scale = torch.empty_like(F), torch.empty((B, 1), device=dev)
+    post = torch.empty_like(F)
+
+    def err(got, want):
+        return ((got.double() - want).abs().max() / want.abs().max()).item()
+
+    def fwd():
+        chain_step.forward_step(XM, A, Mp, out, scale)
+
+    def bwd():
+        post.copy_(FM)
+        chain_step.backward_step(MG, A, Mp, out, post)
+
+    fwd()
+    got_f, got_s = out.clone(), scale.clone()
+    bwd()
+    got_g, got_p = out.clone(), post.clone()
+    errs = {}
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).replace("torch.", "")
+        y = torch.matmul(XM.to(dt), A.to(dt))
+        s = torch.empty((B, 1), dtype=dt, device=dev)
+        chain_step.reference_rows(y, Mp.to(dt), scale=s)
+        errs["forward_vs_plain_" + name] = max(err(got_f, y), err(got_s, s))
+        y = torch.matmul(MG.to(dt), A.to(dt).t())
+        p = FM.to(dt, copy=True)
+        chain_step.reference_rows(y, Mp.to(dt), post=p)
+        errs["backward_vs_plain_" + name] = max(err(got_g, y),
+                                                err(got_p, p))
+
+    def plain_fwd():
+        _rescaled_step(F * M, A, out, scale)
+
+    def plain_bwd():
+        post.copy_(F)
+        _rescaled_step(M * Gn, A.t(), out)
+        p = post.mul_(Mp).mul_(out)
+        p.div_(p.sum(dim=-1, keepdim=True).clamp_min(chain_step.TINY))
+
+    def copy():
+        post.copy_(F)
+
+    At = A.t()
+    line = {"chain_step": "B=%d K=%d" % (B, K),
+            "device": torch.cuda.get_device_name(0),
+            "step_ms_forward": device_ms(fwd),
+            "step_ms_backward": device_ms(bwd) - device_ms(copy),
+            "plain_ms_forward": device_ms(plain_fwd),
+            "plain_ms_backward": device_ms(plain_bwd) - device_ms(copy),
+            "library_product_ms": device_ms(
+                lambda: torch.matmul(F, A, out=out)),
+            "library_product_ms_transposed": device_ms(
+                lambda: torch.matmul(F, At, out=out)),
+            "rows_ms_forward": device_ms(
+                lambda: chain_step.rows(out, Mp, scale=scale)),
+            "rows_ms_backward": device_ms(
+                lambda: chain_step.rows(out, Mp, post=post)),
+            "bound_ms": 2 * B * K * K / (FP32_TFLOPS * 1e12) * 1e3,
+            **errs}
+    line["share_of_bound"] = {
+        k: line["bound_ms"] / line[k]
+        for k in ("step_ms_forward", "step_ms_backward",
+                  "library_product_ms", "library_product_ms_transposed")}
+    return [line]
 
 
 if __name__ == "__main__":

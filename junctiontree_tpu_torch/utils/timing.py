@@ -62,6 +62,9 @@ COUNTERS = (
     # the HMM program gave
     "chain.products",
     "chain.leaf_vars",
+    # chain steps, forward and backward, that ran the fused kernel
+    # (``ops.chain_step``) in place of the plain five-launch step
+    "chain.fused_steps",
 )
 
 CALL_RING = 256  # call records kept by ``TIMERS.calls()``
@@ -237,6 +240,7 @@ class PhaseTimers:
     def counters(self) -> Dict[str, int]:
         """Every counter of the port by name, now (process-wide running
         totals; a call's change is in its :class:`CallRecord`)."""
+        from ..ops import chain_step
         from ..ops.factored_contract import (
             big_clique_sep_message,
             factored_masked_contract as k1,
@@ -253,6 +257,8 @@ class PhaseTimers:
             "big_clique_sep_message.calls": big_clique_sep_message.calls,
             "kept.hits": kept.hits,
             "kept.misses": kept.misses,
+            "chain_step.launches": (chain_step.forward_step.launches
+                                    + chain_step.backward_step.launches),
         }
         out.update(self.tally)
         return out

@@ -352,17 +352,19 @@ def test_bf16_kernels_run_on_wgmma_and_tma(cuda):
     bf16 and float32 at both precisions (three epilogues each, and the
     pairwise fold of six passes), holds HGMMA
     and UTMALDG instructions; the narrow float32 kernel (N <= 32, the
-    CUDA-core route the model shards keep), the pot split and the tree-MAP
-    program's fused collect hold no tensor-core instruction, and there is
-    no other kernel (the partials of a split r2 sum are added inside the
-    contraction kernels)."""
+    CUDA-core route the model shards keep), the pot split, the tree-MAP
+    program's fused collect and the chain program's row pass hold no
+    tensor-core instruction, and there is no other kernel
+    (the partials of a split r2 sum are added inside the contraction
+    kernels)."""
     from junctiontree_tpu_torch.ops import cuda_build
 
     cuda_build.load_library()
     counts = cuda_build.sass_op_counts()
     tc_kinds = {src + epi for src in ("bf16", "f32", "f32_default")
                 for epi in ("_by_c", "_fold", "_smem")} | {"f32_fold_pairs"}
-    assert tc_kinds | {"f32_narrow", "split", "map_collect"} == set(counts)
+    assert tc_kinds | {"f32_narrow", "split", "map_collect",
+                       "chain_step"} == set(counts)
     for kind, ops in counts.items():
         tensor = sum(ops[op] for op in cuda_build.TENSOR_CORE_OPS)
         if kind in tc_kinds:
@@ -851,12 +853,16 @@ def test_expected_counts_route_through_kernel(cuda, monkeypatch):
 
 
 @pytest.mark.cuda
-def test_chain_program_under_grad_on_cuda(cuda):
+def test_chain_program_under_grad_on_cuda(cuda, monkeypatch):
     """The chain program with a gradient (functional steps) equals its
-    in-place value bit for bit on the card, and the chain learner steps."""
+    in-place value on the plain steps bit for bit on the card; the in-place
+    value on the row kernel (``ops.chain_step``, the default there) is
+    within float32 rounding of it (its rows' sums run in another order);
+    and the chain learner steps."""
     from junctiontree_tpu_torch.learn_chain import (
         chain_masks_from_data, fit_mle_chain)
     from junctiontree_tpu_torch.models import chain_bn_model
+    from junctiontree_tpu_torch.ops import chain_step
     from junctiontree_tpu_torch.scan_executor import (
         ChainLayout, chain_posterior_program)
 
@@ -871,10 +877,21 @@ def test_chain_program_under_grad_on_cuda(cuda):
     data[rng.random(data.shape) < 0.4] = -1
     M = torch.tensor(chain_masks_from_data(plan, layout, data), device=cuda)
     prog = chain_posterior_program(plan, layout)
-    post0, logz0 = prog(A, M)
+    before = chain_step.forward_step.launches
+    postk, logzk = prog(A, M)
+    assert chain_step.forward_step.launches - before == len(
+        layout.clique_order)
+    with monkeypatch.context() as mp:
+        mp.setattr(chain_step, "engages", lambda *a: False)
+        post0, logz0 = prog(A, M)
     post1, logz1 = prog(A.clone().requires_grad_(True), M)
     assert post1.requires_grad
     assert torch.equal(post1.detach(), post0) and torch.equal(logz1.detach(), logz0)
+    assert torch.equal(torch.isneginf(logzk), torch.isneginf(logz0))
+    fin = torch.isfinite(logz0)
+    assert (logzk[fin] - logz0[fin]).abs().max() <= 1e-4
+    # each of the 59 steps' products and sums of K = 3 rounds within 4K u
+    assert (postk - post0).abs().max() <= 59 * 4 * 3 * 2.0**-24
     _, hist = fit_mle_chain(plan, data, steps=3, device=cuda)
     assert hist[-1] > hist[0]
 
