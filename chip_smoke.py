@@ -49,9 +49,10 @@ contraction on the card launches the kernel; then:
   forward-backward program), held to float64 and to ``mode="general"``;
 * ``chain_step_kernel``: the chain program's step (the library's product
   and the row kernel) at the HMM cell's shape ([16384, 500] x [500, 500]
-  float32) against the plain five-launch step, the library's product
-  alone and the FP32 bound, and one HMM ``posterior_batch`` at the cell's
-  shape through it, its launches counted, against the plain steps;
+  float32) against the plain step (the product and ``reference_rows``),
+  the library's product alone and the FP32 bound, and one HMM
+  ``posterior_batch`` at the cell's shape through it, its launches
+  counted, against the plain steps;
 * ``fused_serving``: a 1,000-leaf star, B = 1024, auto mode (the level-fused
   program), and the 8x8 grid, B = 4096, ``mode="fused"`` against
   ``mode="general"``;
@@ -158,7 +159,7 @@ def split_line(pot, w1, w2):
     if cfg["src"] not in ("f32x6", "f32x1"):
         return {"split_launches_per_call": 0, "route": cfg["src"]}
     lib, stream = load_library(), torch.cuda.current_stream().cuda_stream
-    before = fc.factored_masked_contract.splits
+    counts = K1Counts()
     buf, ld, _ = fc._split_pot(lib, pot, cfg, stream)
     rows = R2 if cfg["by_n"] else R1 * R2
     n = cfg["planes"] * rows * ld
@@ -169,7 +170,8 @@ def split_line(pot, w1, w2):
             and torch.equal(buf[n:].view(torch.int32), exps),
             f"the pot split disagrees with its plain version at {R1, R2, C}")
     ms = device_ms(lambda: fc._split_pot(lib, pot, cfg, stream))
-    fc.factored_masked_contract.splits = before  # not the caller's work
+    # not the caller's work
+    take_back("factored_masked_contract.splits", counts.splits)
     plain = device_ms(lambda: fc.reference_split_pot(
         pot, cfg["by_n"], cfg["bk"], cfg["planes"]))
     elems, boxes, _ = fc._operand_elems(R1, R2, C, cfg)
@@ -266,15 +268,15 @@ def kept_counts(fn):
     float32 splits made, kept operands found (``kept.hits``) and made."""
     import torch
 
-    from junctiontree_tpu_torch.ops import factored_contract as fc
+    from junctiontree_tpu_torch.utils.timing import TIMERS
 
-    k1 = fc.factored_masked_contract
-    before = (k1.splits, fc.kept.hits, fc.kept.misses)
+    before = TIMERS.counters()
     fn()
     torch.cuda.synchronize()
-    return {"splits": k1.splits - before[0],
-            "kept_hits": fc.kept.hits - before[1],
-            "kept_made": fc.kept.misses - before[2]}
+    after = TIMERS.counters()
+    return {key: after[name] - before[name] for key, name in (
+        ("splits", "factored_masked_contract.splits"),
+        ("kept_hits", "kept.hits"), ("kept_made", "kept.misses"))}
 
 
 def big_clique_model():
@@ -307,13 +309,13 @@ def k1_calls_on_meta(plan, values, run):
         return wrapped(pot, w1, w2)
 
     eng = jt.Engine(plan, device="meta").set_potentials(values)
-    calls = fc.big_clique_sep_message.calls
+    calls = route_calls()
     fc.factored_masked_contract = record
     try:
         run(eng)
     finally:
         fc.factored_masked_contract = wrapped
-    require(fc.big_clique_sep_message.calls - calls == len(shapes),
+    require(route_calls() - calls == len(shapes),
             "route calls and kernel calls differ on meta tensors")
     return shapes
 
@@ -333,14 +335,38 @@ def peak_bytes(fn):
     return out, torch.cuda.max_memory_allocated()
 
 
-def k1_counts_reset():
-    """Set the kernel wrapper's launch counts to 0; returns the wrapper."""
-    from junctiontree_tpu_torch.ops.factored_contract import (
-        factored_masked_contract as k1,
-    )
+class K1Counts:
+    """The big-clique kernel wrapper's counters since this object was made,
+    by the names after ``factored_masked_contract.`` in
+    ``TIMERS.counters()``: ``launches``, ``launches_bf16``,
+    ``launches_backward``, ``splits``, ``padded``."""
 
-    k1.launches = k1.launches_bf16 = k1.launches_backward = k1.splits = 0
-    return k1
+    def __init__(self):
+        self._base = counters()
+
+    def __getattr__(self, name):
+        key = "factored_masked_contract." + name
+        return counters()[key] - self._base[key]
+
+
+def counters():
+    """Every counter of the port by name, now."""
+    from junctiontree_tpu_torch.utils.timing import TIMERS
+
+    return TIMERS.counters()
+
+
+def route_calls():
+    """The big-clique route's contractions so far."""
+    return counters()["big_clique_sep_message.calls"]
+
+
+def take_back(name, n):
+    """Take ``n`` back out of the counter ``name``: work that is not the
+    caller's."""
+    from junctiontree_tpu_torch.utils.timing import TIMERS
+
+    TIMERS.add(name, -n)
 
 
 def check_close(post, logz, ref_post, ref_logz, n_vars, what, *, rtol, atol,
@@ -378,7 +404,7 @@ def phase_bf16(dev, tree, values, masks, f32_post, f32_logz,
     import torch
 
     eng = tree.engine(device=dev, dtype=torch.bfloat16).set_potentials(values)
-    k1 = k1_counts_reset()
+    k1 = K1Counts()
     (post, logz), peak = peak_bytes(lambda: eng.posterior_batch(masks))
     launches = k1.launches
     launches_bf16 = k1.launches_bf16
@@ -451,7 +477,7 @@ def phase_log(dev, tree, values, masks, lin_post, lin_logz):
         while True:
             log_masks = {k: np.where(m[:B] > 0, 0.0, -np.inf).astype(np.float32)
                          for k, m in masks.items()}
-            k1 = k1_counts_reset()
+            k1 = K1Counts()
             try:
                 (post, logz), peak = peak_bytes(
                     lambda: eng.posterior_batch(log_masks))
@@ -515,7 +541,7 @@ def phase_chain(dev, profile):
         tree.plan, jt.random_evidence_batch(tree.plan, B, labels, seed=2))
     masks[labels[3]][2] = 0.0  # row 2: impossible evidence
     eng = tree.engine(device=dev).set_potentials(values)
-    k1 = k1_counts_reset()
+    k1 = K1Counts()
     (post, logz), peak = peak_bytes(lambda: eng.posterior_batch(masks))
     launches = k1.launches
     require(isinstance(post, StackedPosteriors) and eng._route("auto") == "chain",
@@ -572,12 +598,14 @@ def phase_chain_step_kernel(dev):
     """The chain program's step (the library's product, then the row kernel
     of ``csrc/chain_step.cu``) at the HMM cell's shape, [16384, 500] x [500,
     500] float32: its device ms forward and backward against the plain
-    five-launch step, the library's product alone, the row kernel alone and
-    the FP32 bound (``bench_kernel.chain_lines``), with its errors against
-    the plain step in float32 and float64; then one HMM ``posterior_batch`` at the cell's
+    step (the product and ``chain_step.reference_rows``), the library's
+    product alone, the row kernel alone and the FP32 bound
+    (``bench_kernel.chain_lines``), with its errors against the plain step
+    in float32 and float64; then one HMM ``posterior_batch`` at the cell's
     shape (K = 500, 256 sites, B = 16,384, one site in ten typed, row 0
-    impossible) with its fused steps and launches counted around that call
-    alone, its first 2,048 rows against the same call on the plain steps.
+    impossible) with its row-kernel launches (``chain_step.launches``)
+    counted around that call alone, its first 2,048 rows against the same
+    call on the plain steps.
     Returns the ``kernels`` entry."""
     import numpy as np
     import torch
@@ -612,10 +640,9 @@ def phase_chain_step_kernel(dev):
     post, logz = eng.posterior_batch(masks)
     torch.cuda.synchronize()
     after = TIMERS.counters()
-    fused = after["chain.fused_steps"] - before["chain.fused_steps"]
     launches = after["chain_step.launches"] - before["chain_step.launches"]
-    require(fused == launches == 2 * (M - 1),
-            f"HMM posterior_batch: {fused} fused steps, {launches} launches, "
+    require(launches == 2 * (M - 1),
+            f"HMM posterior_batch: {launches} row-kernel launches, "
             f"expected {2 * (M - 1)}")
     engages = chain_step.engages
     chain_step.engages = lambda *a: False
@@ -634,7 +661,7 @@ def phase_chain_step_kernel(dev):
             f"HMM through the kernel against the plain steps: posteriors "
             f"{err}, logZ {lz_err}")
     line.update(phase="chain_step_kernel", hmm_sites=M, hmm_B=B,
-                hmm_fused_steps=fused, hmm_kernel_launches=launches,
+                hmm_kernel_launches=launches,
                 hmm_rows_vs_plain=rows, hmm_max_abs_err_vs_plain=err,
                 hmm_logz_err_vs_plain=lz_err)
     emit(line)
@@ -681,7 +708,7 @@ def phase_fused(dev, profile):
         tree.plan, jt.random_evidence_batch(tree.plan, B, labels, seed=5))
     masks[labels[1]][4] = 0.0  # row 4: impossible evidence
     eng = tree.engine(device=dev).set_potentials(values)
-    k1 = k1_counts_reset()
+    k1 = K1Counts()
     (post, logz), peak = peak_bytes(lambda: eng.posterior_batch(masks))
     launches = k1.launches
     require(isinstance(post, FusedPosteriors) and eng._route("auto") == "fused",
@@ -908,7 +935,7 @@ def phase_map(dev, hail, chain, grid, profile):
         B //= 2
     masks = log_masks(hail["masks"], B)
     eng = tree.engine("max_product", device=dev).set_potentials(hail["values"])
-    k1 = k1_counts_reset()
+    k1 = K1Counts()
     fused = TIMERS.counters()["map.fused_cliques"]
     (assign, score), peak = peak_bytes(lambda: eng.map_assignment_batch(masks))
     fused = TIMERS.counters()["map.fused_cliques"] - fused
@@ -1062,7 +1089,7 @@ def phase_entropy_joint(dev, big, hail, path_shapes, profile):
             "limits": {"rtol": 1e-4, "atol": 1e-6}}
     launched = {}
     for name, run in runs.items():
-        k1 = k1_counts_reset()
+        k1 = K1Counts()
         (out, z), peak = peak_bytes(lambda: run(eng))
         launched[name] = k1.launches
         require(k1.launches > 0 and k1.launches_bf16 == 0,
@@ -1122,7 +1149,7 @@ def phase_entropy_joint(dev, big, hail, path_shapes, profile):
                 best = (len(order), a, b)
     require(best is not None and best[0] >= 3, f"no far pair found: {best}")
     x, y = plan.table.label_of(best[1]), plan.table.label_of(best[2])
-    k1 = k1_counts_reset()
+    k1 = K1Counts()
     (tables, z), peak = peak_bytes(
         lambda: heng.joint_marginal_batch([x, y], hmasks))
     rows = 16
@@ -1162,7 +1189,7 @@ def phase_entropy_joint(dev, big, hail, path_shapes, profile):
     lrows = 8
     leng = htree.engine("log_sum_exp", device=dev).set_potentials(hail["values"])
     lm = log_masks(hmasks, lrows)
-    k1 = k1_counts_reset()
+    k1 = K1Counts()
     held = torch.cuda.memory_allocated()
     (lent, lz), lpeak = peak_bytes(lambda: leng.entropy_batch(lm))
     require(k1.launches == 0, "the log engine's entropy launched the kernel")
@@ -1274,7 +1301,7 @@ def phase_incremental(dev, hail, tailed):
     qvars = [labels[4], labels[len(labels) // 2], labels[-6]]
     upd = {dirty: np.zeros((B, plan.sizes[1]), dtype=np.float32)}
     upd[dirty][:, 0] = 1.0
-    k1 = k1_counts_reset()
+    k1 = K1Counts()
     t0 = time.perf_counter()
     sess = eng.incremental(base)
     torch.cuda.synchronize()
@@ -1298,7 +1325,7 @@ def phase_incremental(dev, hail, tailed):
     opened, both = tailed["opened"], tailed["both"]
     tplan = ttree.plan
     teng = ttree.engine(device=dev).set_potentials(values)
-    k1 = k1_counts_reset()
+    k1 = K1Counts()
     tsess = teng.incremental(tbase)
     n_open = k1.launches
     tposts, tlogz = tsess.query(tupd, tq)
@@ -1369,7 +1396,7 @@ def phase_surgery(dev, big, hail):
     val = np.random.default_rng(5).random((2, 2)) + 0.1
     eng = jt.Engine(plan, device=dev).set_potentials(big["values"])
     before, _ = eng.posterior_batch(masks)
-    k1 = k1_counts_reset()
+    k1 = K1Counts()
     eng.multiply_factor(scope, val)
     post, logz = eng.posterior_batch(masks)
     launches = k1.launches
@@ -1504,13 +1531,13 @@ def phase_kernel_backward(dev, device_ms, host_us):
             require(out.grad_fn is not None, "an output without grad_fn")
             return torch.autograd.grad(out, leaves, up)
 
-        k1_counts_reset()
+        n = K1Counts()
         got = grads(k1)
         torch.cuda.synchronize()
-        require(k1.launches == 3 and k1.launches_backward == 2,
-                f"backward: {k1.launches} launches, {k1.launches_backward} "
+        require(n.launches == 3 and n.launches_backward == 2,
+                f"backward: {n.launches} launches, {n.launches_backward} "
                 "of them backward; expected 3 and 2")
-        splits = k1.splits
+        splits = n.splits
         want = grads(fc.reference_factored_contract)
         errs = {}
         for name, a, b in zip(("dpot", "dw1", "dw2"), got, want):
@@ -1530,11 +1557,11 @@ def phase_kernel_backward(dev, device_ms, host_us):
             No path takes it, and its w2 rows (C floats) are too short for
             the Tensor Memory Accelerator: the copy is not a serving
             path's, so it is not counted."""
-            padded = k1.padded
+            n = K1Counts()
             try:
                 return c(pot.permute(0, 2, 1), w1, up)
             finally:
-                k1.padded = padded
+                take_back("factored_masked_contract.padded", n.padded)
 
         pieces = {
             "dw1": lambda c=none: c(pot.permute(2, 1, 0), up, w2),
@@ -1630,7 +1657,7 @@ def phase_learning(dev, learn_models, chain, profile):
         masks = learn.masks_from_data(plan, data)
         fwd = sum(1 for c in lm["calls"] if not c[2])
         bwd = sum(1 for c in lm["calls"] if c[2])
-        k1 = k1_counts_reset()
+        k1 = K1Counts()
         counts, peak = peak_bytes(
             lambda: learn.expected_counts(plan, values, masks, device=dev))
         n_fwd, n_bwd = k1.launches - k1.launches_backward, k1.launches_backward
@@ -1652,7 +1679,7 @@ def phase_learning(dev, learn_models, chain, profile):
                 "expected counts of a factor do not sum to N")
         t = step_ms(lambda: learn.expected_counts(plan, values, masks, device=dev),
                     iters=5, warmup=1)
-        k1 = k1_counts_reset()
+        k1 = K1Counts()
         steps = 3
         t0 = time.perf_counter()
         thetas, hist = learn.fit_mle_missing(plan, data, steps=steps, device=dev)
@@ -1690,7 +1717,7 @@ def phase_learning(dev, learn_models, chain, profile):
     n, N = cplan.num_vars, 1024
     cdata = chain_samples(cplan, cvalues, N, seed=3)
     cdata[np.random.default_rng(3).random(cdata.shape) < 0.1] = -1
-    k1 = k1_counts_reset()
+    k1 = K1Counts()
     t0 = time.perf_counter()
     (cth, chist), cpeak = peak_bytes(
         lambda: fit_mle_chain(cplan, cdata, steps=3, device=dev))
@@ -1716,7 +1743,7 @@ def phase_learning(dev, learn_models, chain, profile):
     with torch.no_grad():
         logz, fwd_peak = peak_bytes(lambda: obs_logz(thetas, dmasks))
     del logz
-    k1 = k1_counts_reset()
+    k1 = K1Counts()
     hcounts, hpeak = peak_bytes(
         lambda: learn.expected_counts(hplan, values, hmasks, device=dev))
     require(k1.launches == 0, "hailfinder learning launched the kernel")
@@ -1781,7 +1808,7 @@ def phase_solvers(dev, hail, profile):
     from junctiontree_tpu_torch.sampling import engine_sample
 
     line = {"phase": "solvers"}
-    k1 = k1_counts_reset()
+    k1 = K1Counts()
 
     # Marginal MAP: 6x6 grid, 6 MAP variables, B = 2048, against float64
     factors, sizes, values = grid_mrf_model(6, 6, seed=0)
@@ -1981,7 +2008,7 @@ def phase_autotune(dev, tree, values, masks, main_shapes):
         {k: v[:rows] for k, v in masks.items()})
     for dtype in (torch.float32, torch.bfloat16):
         eng = tree.engine(device=dev, dtype=dtype).set_potentials(values)
-        k1 = k1_counts_reset()
+        k1 = K1Counts()
         post, logz = eng.posterior_batch(masks)
         n_k1 = k1.launches
         require(n_k1 == len(main_shapes),
@@ -2116,8 +2143,8 @@ def phase_cli(dev, big):
             [post[tree.plan.table.id_of(v)][0].cpu().numpy() for v in range(len(names))])
         want_pr = float(logz[0]) / np.log(10.0)
         for task in ("MAR", "PR"):
-            k1 = k1_counts_reset()
-            calls0 = fc.big_clique_sep_message.calls
+            k1 = K1Counts()
+            calls0 = route_calls()
             buf = io.StringIO()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
@@ -2125,7 +2152,7 @@ def phase_cli(dev, big):
                                "--device", "cuda"])
             secs = time.perf_counter() - t0
             require(rc == 0, f"CLI {task} exited {rc}")
-            routed = fc.big_clique_sep_message.calls - calls0
+            routed = route_calls() - calls0
             require(routed > 0 and k1.launches == routed,
                     f"CLI {task}: {routed} routed calls, {k1.launches} "
                     "kernel launches")
@@ -2249,7 +2276,7 @@ def phase_memory(dev, hail, big):
         # bytes, which the bound counts); those copies are counted here,
         # apart from phase tma_copies, which holds the serving phases'
         # evidence patterns to none
-        calls, padded = [], fc.factored_masked_contract.padded
+        calls, n = [], K1Counts()
         for m in few + [big["masks"]] + few + [big["masks"]]:
             made = kept_counts(lambda: eng.posterior_batch(m))
             kept_now = eng.describe()["kept_layouts"]
@@ -2257,9 +2284,8 @@ def phase_memory(dev, hail, big):
                     f"big clique {dtype}: kept {kept_now}, bound {bound}")
             calls.append([made["splits"], made["kept_made"], kept_now["bytes"]])
         line[key + "_patterns_1_2_12_var_splits_made_kept_bytes"] = calls
-        line[key + "_patterns_padded_operands"] = (
-            fc.factored_masked_contract.padded - padded)
-        fc.factored_masked_contract.padded = padded
+        line[key + "_patterns_padded_operands"] = n.padded
+        take_back("factored_masked_contract.padded", n.padded)
         del eng
     torch.cuda.empty_cache()
     # the cutset engine at B = 1024 under its default 8 GiB chunk budget
@@ -2458,7 +2484,7 @@ def phase_parallel(dev, main_shapes, profile, device_ms):
         eng = jt.Engine(plan, device=dev).shard_model(
             mesh, min_states=PARALLEL["tp_min_states"],
             shard_batch=shard_batch).set_potentials(values)
-        k1 = k1_counts_reset()
+        k1 = K1Counts()
         post, logz = eng.posterior_batch(masks)
         torch.cuda.synchronize()
         launches = k1.launches
@@ -2941,14 +2967,14 @@ def run() -> int:
     # every path from here on is a serving path: no operand may need a copy
     # into an aligned buffer before its tensor maps; the copies, if any, are
     # named in the failure
-    fc.factored_masked_contract.padded = 0
+    serving_copies = K1Counts()
     copied = []
     tma_rows = fc._tma_rows
 
     def naming_copies(t):
-        before = fc.factored_masked_contract.padded
+        before = serving_copies.padded
         out = tma_rows(t)
-        if fc.factored_masked_contract.padded > before and len(copied) < 8:
+        if serving_copies.padded > before and len(copied) < 8:
             copied.append((str(t.dtype), tuple(t.shape), tuple(t.stride()),
                            t.data_ptr() % 16))
         return out
@@ -2968,7 +2994,7 @@ def run() -> int:
 
     # -- 4. big-clique serving (the main path) -------------------------------
     eng = tree.engine(device=dev).set_potentials(values)
-    k1 = k1_counts_reset()
+    k1 = K1Counts()
     (post, logz), peak_big = peak_bytes(lambda: eng.posterior_batch(masks))
     launches, splits = k1.launches, k1.splits
     require(k1.launches_bf16 == 0,
@@ -3027,7 +3053,7 @@ def run() -> int:
                                     ("tree", "factors", "sizes", "values"))
     plan, masks, eng, Bh, rows = (tree.plan, hail["masks"], hail["eng"],
                                   hail["B"], hail["rows"])
-    k1 = k1_counts_reset()
+    k1 = K1Counts()
     (post, logz), peak = peak_bytes(lambda: eng.posterior_batch(masks))
     hail_launches = k1.launches
     worst_h = check_close(post, logz, hail["ref_post"], hail["ref_logz"],
@@ -3096,8 +3122,8 @@ def run() -> int:
     tp_launches, tp_tot = phase_parallel(dev, main_shapes, profile, device_ms)
 
     fc._tma_rows = tma_rows
-    require(fc.factored_masked_contract.padded == 0,
-            f"{fc.factored_masked_contract.padded} operands of the serving "
+    require(serving_copies.padded == 0,
+            f"{serving_copies.padded} operands of the serving "
             "paths were copied into an aligned buffer (dtype, shape, strides, "
             f"address mod 16 of the first: {copied})")
     emit({"phase": "tma_copies", "padded_on_serving_paths": 0})

@@ -1315,8 +1315,7 @@ class Engine:
         the big-clique kernel's launch counters and, under ``counters``,
         every counter of the port by name (``utils.timing.TIMERS``;
         process-wide, like the phase timers)."""
-        from .ops.factored_contract import factored_masked_contract
-
+        counters = TIMERS.counters()
         st = self.plan.stats()
         st["semiring"] = self.semiring.name
         st["device"] = str(self.device)
@@ -1326,13 +1325,12 @@ class Engine:
         st["hmm_layout"] = self._hmm_layout() is not None
         st["cached_programs"] = sorted(str(k[0]) for k in self._programs)
         st["process_phase_totals_s"] = TIMERS.report()
+        k1 = "factored_masked_contract"
         st["kernel_launches"] = {
-            "factored_masked_contract": factored_masked_contract.launches,
-            "factored_masked_contract_bf16":
-                factored_masked_contract.launches_bf16,
-            "factored_masked_contract_backward":
-                factored_masked_contract.launches_backward,
-            "big_clique_route_calls": big_clique_sep_message.calls,
+            k1: counters[k1 + ".launches"],
+            k1 + "_bf16": counters[k1 + ".launches_bf16"],
+            k1 + "_backward": counters[k1 + ".launches_backward"],
+            "big_clique_route_calls": counters["big_clique_sep_message.calls"],
         }
         from .ops.autotune import report
 
@@ -1342,7 +1340,7 @@ class Engine:
         if self._model_mesh is not None:
             st["tp_fallbacks"] = list(self._tp_notes)
         st["kept_layouts"] = self._kept_now()
-        st["counters"] = TIMERS.counters()
+        st["counters"] = counters
         return st
 
     def _standing(self) -> list:

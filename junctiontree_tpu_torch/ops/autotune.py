@@ -36,6 +36,8 @@ import threading
 import time
 from typing import Dict, Optional
 
+from ..utils.timing import TIMERS
+
 _LOCK = threading.Lock()
 _CACHE: Optional[Dict[str, dict]] = None
 # shapes whose cached decision has been re-validated by THIS process; a
@@ -188,9 +190,9 @@ def _reconcile(old: dict, fresh: dict) -> dict:
     return new
 
 
-def _counts(fn) -> Dict[str, int]:
-    return {k: getattr(fn, k) for k in
-            ("launches", "launches_bf16", "launches_backward", "splits")}
+# the kernel's counters that timing it would add to
+_COUNTED = tuple("factored_masked_contract." + k for k in
+                 ("launches", "launches_bf16", "launches_backward", "splits"))
 
 
 def measure(R1: int, R2: int, C: int, B: int, dtype: str = "f32",
@@ -230,13 +232,14 @@ def measure(R1: int, R2: int, C: int, B: int, dtype: str = "f32",
 
     # the kernel's launch counts are those of the caller's work: launches
     # made here to time it are taken back out
-    counts = _counts(factored_masked_contract)
+    before = TIMERS.counters()
     try:
         t_k, t_l = _wall_ms(k1), _wall_ms(lib)
         d_k, d_l = _device_ms(k1), _device_ms(lib)
     finally:
-        for name, n in counts.items():
-            setattr(factored_masked_contract, name, n)
+        after = TIMERS.counters()
+        for name in _COUNTED:
+            TIMERS.add(name, before[name] - after[name])
     flops, nbytes, bound, by = contraction_bound(R1, R2, C, B, dtype == "bf16")
     # near ties go to the kernel; see REVALIDATE_MARGIN
     return dict(

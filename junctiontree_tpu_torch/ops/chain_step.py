@@ -15,19 +15,20 @@ For batch rows b and a [K, K] transition ``A``::
                out = m ⊙ g                   m = M_k: the next step's mg
                                              (None at position 0: out is y)
 
-This is ``scan_executor._rescaled_step``, its mask multiply and the chain
-program's posterior pass, one position at a time.  The product is
-``torch.matmul`` (FP32 on the CUDA cores under ``pinned_precision``: no
-TF32); :func:`rows` is the hand-written CUDA kernel ``csrc/chain_step.cu``
+This is the chain program's rescaled step, its mask multiply and its
+posterior pass, one position at a time.  The product is ``torch.matmul``
+(FP32 on the CUDA cores under ``pinned_precision``: no TF32); :func:`rows`
+is the hand-written CUDA kernel ``csrc/chain_step.cu``
 (``chain_rows_kernel``: one warp a row, in place over the product; it
 replaces no TPU kernel), and :func:`reference_rows` its plain PyTorch
 version, with the same elementwise products and divisions (only the rows'
 sums are summed in another order).  :func:`forward_step` and
-:func:`backward_step` run the two.
-
-The chain program calls them where :func:`engages`: float32 on a CUDA
-device, K at most :data:`K_MAX`, and steps that are not functional (no
-gradient through ``A``).  Everything else keeps the plain steps.
+:func:`backward_step` run the product and then the row pass: the kernel
+where :func:`engages` holds (float32 on a CUDA device, K at most
+:data:`K_MAX`), the plain version everywhere else (the CPU, meta tensors,
+float64, the half types, wider rows).  They are the chain program's only
+in-place step; its functional steps (a gradient through ``A``) do not call
+them.
 """
 
 from __future__ import annotations
@@ -36,16 +37,18 @@ from typing import Optional
 
 import torch
 
+from ..utils.timing import TIMERS
+
 K_MAX = 1024                  # the widest row a warp holds in registers
 WIDTHS = (256, 512, 1024)     # the kernel's row widths; they must match
 TINY = 1e-38                  # the chain program's floor of a maximum or sum
 
 
 def engages(dtype: torch.dtype, device, card: int) -> bool:
-    """Whether the chain program's (non-functional) steps over a
-    ``card``-state chain of ``dtype`` on ``device`` run the row kernel:
-    float32 on a CUDA device with ``card <= K_MAX`` (the CPU, meta tensors,
-    float64 and the half types keep the plain steps)."""
+    """Whether the row pass of a ``card``-state chain step of ``dtype`` on
+    ``device`` runs the kernel: float32 on a CUDA device with ``card <=
+    K_MAX`` (the CPU, meta tensors, float64 and the half types run
+    :func:`reference_rows`)."""
     return (dtype == torch.float32 and torch.device(device).type == "cuda"
             and 1 <= card <= K_MAX)
 
@@ -83,7 +86,8 @@ def rows(y: torch.Tensor, m: Optional[torch.Tensor],
          scale: Optional[torch.Tensor] = None,
          post: Optional[torch.Tensor] = None) -> None:
     """:func:`reference_rows` as one launch of the CUDA kernel: float32,
-    contiguous tensors on one device, K at most :data:`K_MAX`."""
+    contiguous tensors on one device, K at most :data:`K_MAX`.  Counts the
+    launch (``chain_step.launches``)."""
     B, K = y.shape
     mats = [t for t in (y, m, post) if t is not None]
     if any(t.dtype != torch.float32 for t in mats):
@@ -121,6 +125,16 @@ def rows(y: torch.Tensor, m: Optional[torch.Tensor],
         raise RuntimeError("chain row kernel launch failed: "
                            + lib.jt_error_string(rc).decode()
                            + f" (code {rc})")
+    TIMERS.add("chain_step.launches")
+
+
+def _row_pass(y, m, scale=None, post=None) -> None:
+    """The step's row pass over the product ``y``: :func:`rows` where
+    :func:`engages`, else :func:`reference_rows`."""
+    if engages(y.dtype, y.device, y.shape[-1]):
+        rows(y, m, scale=scale, post=post)
+    else:
+        reference_rows(y, m, scale=scale, post=post)
 
 
 def forward_step(xm: torch.Tensor, A: torch.Tensor, m: Optional[torch.Tensor],
@@ -128,11 +142,9 @@ def forward_step(xm: torch.Tensor, A: torch.Tensor, m: Optional[torch.Tensor],
                  scale: Optional[torch.Tensor] = None) -> None:
     """Forward step k: ``out`` = F_{k+1} ⊙ M_{k+1} (F_m where ``m`` is None)
     and ``scale`` = the rows' floored maxima, from ``xm`` = F_k ⊙ M_k, ``A``
-    = A_k and ``m`` = M_{k+1}.  The product, then :func:`rows`
-    (``launches`` counts it)."""
+    = A_k and ``m`` = M_{k+1}.  The product, then the row pass."""
     torch.matmul(xm, A, out=out)
-    rows(out, m, scale=scale)
-    forward_step.launches += 1
+    _row_pass(out, m, scale=scale)
 
 
 def backward_step(mg: torch.Tensor, A: torch.Tensor,
@@ -141,11 +153,6 @@ def backward_step(mg: torch.Tensor, A: torch.Tensor,
     """Backward step k: from ``mg`` = M_{k+1} ⊙ G_{k+1} and ``A`` = A_k
     (read transposed), ``post`` = F_k ⊙ M_k overwritten by position k's
     posterior and ``out`` = M_k ⊙ G_k (``m`` = M_k; None: the product).
-    The product, then :func:`rows` (``launches`` counts it)."""
+    The product, then the row pass."""
     torch.matmul(mg, A.t(), out=out)
-    rows(out, m, post=post)
-    backward_step.launches += 1
-
-
-forward_step.launches = 0
-backward_step.launches = 0
+    _row_pass(out, m, post=post)

@@ -299,7 +299,7 @@ def _tma_rows(t: torch.Tensor) -> Tuple[torch.Tensor, int]:
     """A contiguous 2-D tensor as the kernel's tensor maps read it, and its
     row stride in elements: the tensor itself where its address is 16-byte
     aligned and its rows a multiple of 16 bytes, else a copy into a
-    zero-padded buffer with such rows (counted in
+    zero-padded buffer with such rows (counter
     ``factored_masked_contract.padded``)."""
     rows, n = (int(d) for d in t.shape)
     per = 16 // t.element_size()
@@ -308,7 +308,7 @@ def _tma_rows(t: torch.Tensor) -> Tuple[torch.Tensor, int]:
     ld = -(-n // per) * per
     buf = torch.zeros((rows, ld), dtype=t.dtype, device=t.device)
     buf[:, :n] = t
-    factored_masked_contract.padded += 1
+    TIMERS.add("factored_masked_contract.padded")
     return buf, ld
 
 
@@ -359,7 +359,7 @@ def _split_pot(lib, pot: torch.Tensor, cfg: dict, stream
     rows and 64 columns (what one pot box of a stage holds) scaled by the
     exponent of its largest |pot|.  Returns the buffer, its row stride and
     the address of the boxes' exponents (int32), which the buffer holds
-    behind the planes.  Counts ``factored_masked_contract.splits``."""
+    behind the planes.  Counter ``factored_masked_contract.splits``."""
     R1, R2, C = (int(d) for d in pot.shape)
     n, boxes, ld = _operand_elems(R1, R2, C, cfg)
     buf = torch.empty(n + 2 * boxes, dtype=torch.bfloat16, device=pot.device)
@@ -371,7 +371,7 @@ def _split_pot(lib, pot: torch.Tensor, cfg: dict, stream
         raise RuntimeError(
             "factored_contract split launch failed: "
             + lib.jt_error_string(rc).decode() + f" (code {rc})")
-    factored_masked_contract.splits += 1
+    TIMERS.add("factored_masked_contract.splits")
     return buf, ld, exps
 
 
@@ -501,24 +501,23 @@ def kept(pot: torch.Tensor, key, make):
     pattern); else the new operand serves its call alone.  So one call of
     another pattern between two of a steady one, or a call that needs a
     layout beyond a call's (a joint beside posteriors), makes its own
-    operands and puts none of the steady call's out.  Counts
-    ``kept.hits`` and ``kept.misses``, and in ``utils.timing.TIMERS`` the
-    operands put out (``kept.evictions``) and the time of making one for a
-    standing tensor (phase ``k1.split``); notes ``kept`` (found or not) on
-    the open span."""
+    operands and puts none of the steady call's out.  Counters
+    ``kept.hits`` and ``kept.misses``, and the operands put out
+    (``kept.evictions``); phase ``k1.split``, the time of making one for a
+    standing tensor; notes ``kept`` (found or not) on the open span."""
     entry = _entry(pot)
     if entry is None:
-        kept.misses += 1
+        TIMERS.add("kept.misses")
         TIMERS.note(kept=False)
         return make()
     ops = entry.ops
     if key in ops:
         ops[key] = (ops[key][0], entry.misses)
         ops.move_to_end(key)
-        kept.hits += 1
+        TIMERS.add("kept.hits")
         TIMERS.note(kept=True)
         return ops[key][0]
-    kept.misses += 1
+    TIMERS.add("kept.misses")
     entry.misses += 1
     TIMERS.note(kept=False)
     with TIMERS.phase("k1.split"):
@@ -531,10 +530,6 @@ def kept(pot: torch.Tensor, key, make):
         TIMERS.add("kept.evictions")
     ops[key] = (value, entry.misses)
     return value
-
-
-kept.hits = 0
-kept.misses = 0
 
 
 def kept_sizes(pot: torch.Tensor) -> List[int]:
@@ -692,8 +687,7 @@ def _launch_kernel(
         if isinstance(pot, StandingLayout):
             pot = pot.tensor()
         _launch_fma(lib, pot, w1, w2, out, cfg, stream.cuda_stream)
-        factored_masked_contract.launches += 1
-        factored_masked_contract.launches_backward += int(backward)
+        _count_launch(False, backward)
         return out
     with torch.cuda.device(pot.device):
         op = _operand(lib, pot, cfg, stream)
@@ -716,10 +710,16 @@ def _launch_kernel(
             stream.cuda_stream,
         )
     _check_rc(lib, rc, out.device, stream.cuda_stream)
-    factored_masked_contract.launches += 1
-    factored_masked_contract.launches_bf16 += int(bf16)
-    factored_masked_contract.launches_backward += int(backward)
+    _count_launch(bf16, backward)
     return out
+
+
+def _count_launch(bf16: bool, backward: bool) -> None:
+    """Count one kernel launch in ``factored_masked_contract.launches``
+    and, where it applies, ``.launches_bf16`` and ``.launches_backward``."""
+    TIMERS.add("factored_masked_contract.launches")
+    TIMERS.add("factored_masked_contract.launches_bf16", int(bf16))
+    TIMERS.add("factored_masked_contract.launches_backward", int(backward))
 
 
 def _launch_fma(lib, pot, w1, w2, out, cfg, stream) -> None:
@@ -882,8 +882,9 @@ def factored_masked_contract(
     bfloat16 is a serving dtype: a bf16 input that requires a gradient
     raises.
 
-    Each kernel launch adds one to ``factored_masked_contract.launches``;
-    one with bf16 inputs also to ``.launches_bf16``, one made by a backward
+    Each kernel launch adds one to the counter
+    ``factored_masked_contract.launches`` (``utils.timing.TIMERS``); one
+    with bf16 inputs also to ``.launches_bf16``, one made by a backward
     pass also to ``.launches_backward``.  ``.splits`` counts the float32
     potentials split into bf16 planes (one before each float32 launch on
     the tensor cores; none before a narrow one).
@@ -906,13 +907,6 @@ def factored_masked_contract(
             )
         return _FactoredContract.apply(pot, w1, w2, precision)
     return _contract_on_device(pot, w1, w2, precision=precision)
-
-
-factored_masked_contract.launches = 0
-factored_masked_contract.launches_bf16 = 0
-factored_masked_contract.launches_backward = 0
-factored_masked_contract.splits = 0
-factored_masked_contract.padded = 0
 
 
 def kernel_or_plain(pot, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
@@ -1071,7 +1065,8 @@ def big_clique_sep_message(
     run the CUDA kernel, a ``pot`` marked :func:`standing` as a
     :class:`StandingLayout` (what the launch reads of it is kept beside it
     per layout); every other dtype, and all CPU tensors, run the plain
-    version.  Each call adds one to ``big_clique_sep_message.calls``.
+    version.  Each call adds one to the counter
+    ``big_clique_sep_message.calls``.
     Returns [B, *sep_shape]."""
     cset = list(clique_vars)
     sset = list(sep_vars)
@@ -1146,7 +1141,7 @@ def big_clique_sep_message(
     else:
         p3 = pot.kernel_layout(r1_axes, r2_axes, c_axes, r2_first)
 
-    big_clique_sep_message.calls += 1
+    TIMERS.add("big_clique_sep_message.calls")
     contract = kernel_or_plain if contract_fn is None else contract_fn
     out = contract(p3, w1, w2).reshape((B,) + sep_shape)
 
@@ -1158,9 +1153,6 @@ def big_clique_sep_message(
         axes_order = [0] + [1 + list(vs).index(v) for v in sset if v in vs]
         out = out * t.permute(axes_order).reshape(shape)
     return out
-
-
-big_clique_sep_message.calls = 0
 
 
 def _hand_over(pot: torch.Tensor) -> bool:

@@ -10,13 +10,14 @@ pass, with per-step rescaling so everything stays in linear space
   G_m = 1;  G_k[b,p]     = sum_q pot_k[p,q] * M_{k+1}[b,q] * G_{k+1}[b,q]
   posterior(v_k) ∝ F_k ⊙ M_k ⊙ G_k;   logZ = log Σ_p F_m M_m + offsets
 
-PyTorch runs eagerly, so the two passes are Python loops over preallocated
-``[m+1, B, K]`` stacks, a handful of small device operations per step.  In
-float32 on the card a step is two launches (``ops.chain_step``: the
-product, then one row kernel for the row maximum, the divide and the next
-product's mask multiply), and the backward pass writes each position's
-posterior as it goes, keeping the backward messages in two [B, K] buffers
-in turn.
+PyTorch runs eagerly, so the two passes are Python loops over a
+preallocated ``[m+1, B, K]`` forward stack.  A step is the product, then
+one row pass for the row maximum, the divide and the next product's mask
+multiply (``ops.chain_step``: in float32 on the card one row kernel, so
+two launches; its plain PyTorch version elsewhere), and the backward pass
+writes each position's posterior as it goes, keeping the backward
+messages in two [B, K] buffers in turn.  Under a gradient through the
+transitions the steps are functional instead, as autograd needs them.
 
 The same layout serves exact MAP (``chain_viterbi_program``) and k-best
 decoding (``chain_kbest_program``) in log space: a forward loop of maxima
@@ -64,63 +65,56 @@ class ChainLayout:
 
     @staticmethod
     def detect(plan: Plan) -> Optional["ChainLayout"]:
-        tree = plan.tree
-        n = tree.num_cliques
-        if n < 2:
+        """Every clique over two variables, every separator over one, one
+        cardinality, and the cliques a path over every variable, walked
+        from the end whose clique comes first."""
+        cvs = plan.clique_vars
+        cards = {plan.sizes[v] for c in cvs for v in c}
+        if not _pairwise(plan) or len(cards) != 1:
             return None
-        # every clique exactly 2 vars, every separator exactly 1 var
-        if any(len(c) != 2 for c in plan.clique_vars):
+        walk = _walk_path(cvs, range(len(cvs)), by_clique=True)
+        if walk is None or sorted(walk[0]) != list(range(plan.num_vars)):
             return None
-        if any(len(s) != 1 for s in tree.separators):
+        return ChainLayout(*walk, cards.pop())
+
+
+def _pairwise(plan: Plan) -> bool:
+    """At least two cliques, each over two variables, and every separator
+    over one."""
+    return (plan.tree.num_cliques >= 2
+            and all(len(c) == 2 for c in plan.clique_vars)
+            and all(len(s) == 1 for s in plan.tree.separators))
+
+
+def _walk_path(cvs, cliques, by_clique: bool):
+    """``(var_order, clique_order, transpose)`` of the path that the
+    two-variable cliques ``cliques`` (indices into ``cvs``) form over their
+    variables, walked from one of its two end variables: the one whose
+    clique comes first (``by_clique``) or the one with the smaller id.
+    ``transpose[k]`` is True where clique k's variables are (v_{k+1}, v_k).
+    None unless the cliques form one path."""
+    adj: Dict[int, List[int]] = {}
+    for c in cliques:
+        for v in cvs[c]:
+            adj.setdefault(v, []).append(c)
+    ends = [v for v, cs in adj.items() if len(cs) == 1]
+    if len(ends) != 2 or any(len(cs) > 2 for cs in adj.values()):
+        return None
+    var_order, clique_order, transpose = [min(
+        ends, key=lambda v: (adj[v][0], v) if by_clique else v)], [], []
+    prev = -1
+    while len(clique_order) < len(cliques):
+        nxt = [c for c in adj[var_order[-1]] if c != prev]
+        if len(nxt) != 1:
             return None
-        # path topology: degree <= 2, exactly two endpoints
-        deg = [0] * n
-        adj: List[List[int]] = [[] for _ in range(n)]
-        for a, b, _ in tree.edges:
-            deg[a] += 1
-            deg[b] += 1
-            adj[a].append(b)
-            adj[b].append(a)
-        ends = [i for i in range(n) if deg[i] == 1]
-        if len(ends) != 2 or any(d > 2 for d in deg):
-            return None
-        # uniform cardinality
-        cards = {plan.sizes[v] for c in plan.clique_vars for v in c}
-        if len(cards) != 1:
-            return None
-        card = cards.pop()
-        # walk the path
-        order = [ends[0]]
-        prev = -1
-        while len(order) < n:
-            cur = order[-1]
-            nxt = [x for x in adj[cur] if x != prev]
-            if len(nxt) != 1:
-                return None
-            prev = cur
-            order.append(nxt[0])
-        # recover the var chain: v_0 is the var of c_0 not shared with c_1
-        var_order: List[int] = []
-        transpose: List[bool] = []
-        first = set(plan.clique_vars[order[0]])
-        shared01 = first & set(plan.clique_vars[order[1]])
-        if len(shared01) != 1:
-            return None
-        v0 = (first - shared01).pop()
-        var_order.append(v0)
-        cur_var = v0
-        for c in order:
-            cv = plan.clique_vars[c]
-            if cur_var not in cv:
-                return None
-            nxt_var = cv[1] if cv[0] == cur_var else cv[0]
-            transpose.append(cv[0] != cur_var)
-            var_order.append(nxt_var)
-            cur_var = nxt_var
-        # chain must cover every variable exactly once
-        if sorted(var_order) != list(range(plan.num_vars)):
-            return None
-        return ChainLayout(var_order, order, transpose, card)
+        c = prev = nxt[0]
+        a, b = cvs[c]
+        transpose.append(a != var_order[-1])
+        var_order.append(b if a == var_order[-1] else a)
+        clique_order.append(c)
+    if len(set(var_order)) != len(var_order):
+        return None
+    return var_order, clique_order, transpose
 
 
 def stack_chain_potentials(
@@ -136,29 +130,12 @@ def stack_chain_potentials(
     )
 
 
-def _rescaled_step(x, mat, out=None, s_out=None):
-    """One rescaled chain step: ``x @ mat`` divided by its floored row
-    maximum; returns (result, maxima [B, 1]).  With ``out`` / ``s_out`` (rows
-    of preallocated stacks) both are written in place; without them the step
-    is functional, as autograd needs it."""
+def _rescaled_step(x, mat):
+    """One rescaled chain step, functional as autograd needs it: ``x @
+    mat`` divided by its floored row maximum, and those maxima [B, 1]."""
     y = torch.matmul(x, mat)
-    if out is None:
-        s = y.amax(dim=-1, keepdim=True).clamp_min(_TINY)
-        return y / s, s
-    if s_out is None:
-        s = y.amax(dim=-1, keepdim=True).clamp_(min=_TINY)
-    else:
-        s = torch.amax(y, dim=-1, keepdim=True, out=s_out).clamp_(min=_TINY)
-    return torch.div(y, s, out=out), s
-
-
-def _fused(A: torch.Tensor, functional: bool) -> bool:
-    """Whether the chain program's steps over the transitions ``A`` [m, K,
-    K] run the row kernel (``ops.chain_step``): steps that write into the
-    stacks in place (no gradient through ``A``), float32 on a CUDA device,
-    K at most ``chain_step.K_MAX``."""
-    return not functional and chain_step.engages(A.dtype, A.device,
-                                                 A.shape[-1])
+    s = y.amax(dim=-1, keepdim=True).clamp_min(_TINY)
+    return y / s, s
 
 
 def _stack_masks(layout: ChainLayout, masks, dtype, device) -> torch.Tensor:
@@ -185,52 +162,40 @@ def _chain_forward(layout: ChainLayout, A: torch.Tensor, masks):
     """Forward pass of the chain program: ``(M, F_all, logZ, functional)``
     with the stacked masks ``M`` and forward messages ``F_all``, both
     [m+1, B, K].  When ``A`` requires a gradient (and gradients are on) every
-    step is functional and the stacks are ``torch.stack`` of the steps; else
-    the steps write into preallocated stacks in place, and where they run
-    the row kernel (:func:`_fused`) ``F_all[k]`` holds F_k ⊙ M_k for k < m:
-    the next product's operand, and what the backward pass's posterior
+    step is functional (:func:`_rescaled_step`) and ``F_all`` is the
+    ``torch.stack`` of F_k; else ``chain_step.forward_step`` writes into
+    preallocated stacks in place, and ``F_all[k]`` holds F_k ⊙ M_k for k <
+    m: the next product's operand, and what the backward pass's posterior
     reads."""
     m = len(layout.clique_order)
     dtype, device = A.dtype, A.device
-    M = _stack_masks(layout, masks, dtype, device)
+    # the row kernel reads whole contiguous rows
+    M = _stack_masks(layout, masks, dtype, device).contiguous()
     B, K = M.shape[1], M.shape[2]
     functional = A.requires_grad and torch.is_grad_enabled()
-    fused = _fused(A, functional)
-    if fused:  # the kernel reads whole contiguous rows
-        M = M.contiguous()
-    F_all = scale = None
-    F_rows = s_rows = [None] * (m + 1)
-    if not functional:
-        F_all = torch.empty((m + 1, B, K), dtype=dtype, device=device)
-        scale = torch.empty((m, B, 1), dtype=dtype, device=device)
-        if fused and m:  # F_0 ⊙ M_0
-            F_all[0].copy_(M[0])
-        else:
-            F_all[0] = 1.0
-        F_rows, s_rows = F_all.unbind(0), scale.unbind(0)
     # one unbind each, not one index per step (and per backward step)
     Ms, As = M.unbind(0), A.unbind(0)
-    # each step's max lands in `scale`, whose logs sum to the logZ offset
-    Fs = [torch.ones((B, K), dtype=dtype, device=device) if functional
-          else F_rows[0]]
-    ss = []
     TIMERS.add("chain.products", m)
-    if fused:
-        TIMERS.add("chain.fused_steps", m)
     with TIMERS.span("chain.forward", M=m + 1, B=B, K=K,
                      products=[[m, B, K, K]]):
-        for k in range(m):
-            if fused:
+        if functional:
+            Fs, ss = [torch.ones((B, K), dtype=dtype, device=device)], []
+            for k in range(m):
+                f, s = _rescaled_step(Fs[-1] * Ms[k], As[k])
+                Fs.append(f)
+                ss.append(s)
+            F_all, scale = torch.stack(Fs), torch.stack(ss)
+        else:
+            F_all = torch.empty((m + 1, B, K), dtype=dtype, device=device)
+            # each step's max lands in `scale`, whose logs sum to the logZ
+            # offset
+            scale = torch.empty((m, B, 1), dtype=dtype, device=device)
+            F_all[0].copy_(M[0])  # F_0 ⊙ M_0
+            F_rows, s_rows = F_all.unbind(0), scale.unbind(0)
+            for k in range(m):
                 chain_step.forward_step(F_rows[k], As[k], Ms[k + 1]
                                         if k + 1 < m else None,
                                         F_rows[k + 1], s_rows[k])
-                continue
-            f, s = _rescaled_step(Fs[-1] * Ms[k], As[k], F_rows[k + 1],
-                                  s_rows[k])
-            Fs.append(f)
-            ss.append(s)
-        if functional:
-            F_all, scale = torch.stack(Fs), torch.stack(ss)
         zfin = (F_all[m] * M[m]).sum(dim=-1)
         logz = torch.where(
             zfin > 0, torch.log(zfin.clamp_min(_TINY)),
@@ -277,41 +242,30 @@ def _chain_posteriors(layout: ChainLayout, A: torch.Tensor, masks):
     m = len(layout.clique_order)
     M, F_all, logz, functional = _chain_forward(layout, A, masks)
     B, K = F_all.shape[1], F_all.shape[2]
-    fused = _fused(A, functional)
+    Ms = M.unbind(0)
     TIMERS.add("chain.products", m)
-    if fused:
-        TIMERS.add("chain.fused_steps", m)
     with TIMERS.span("chain.backward", M=m + 1, B=B, K=K,
                      products=[[m, B, K, K]]):
-        if fused:
-            # M_k ⊙ G_k lives until step k - 1 has read it: two [B, K]
-            # buffers in turn; each step writes position k's posterior over
-            # F_k ⊙ M_k, which the forward pass left in F_k's place
-            G = torch.empty((2, B, K), dtype=F_all.dtype, device=F_all.device)
-            F_rows, Ms, As = F_all.unbind(0), M.unbind(0), A.unbind(0)
-            for k in range(m - 1, -1, -1):  # M_m ⊙ G_m = M_m
-                chain_step.backward_step(G[(k + 1) % 2] if k < m - 1
-                                         else Ms[m], As[k],
-                                         Ms[k] if k else None, G[k % 2],
-                                         F_rows[k])
-            last = F_all[m].mul_(M[m])
-            last.div_(last.sum(dim=-1, keepdim=True).clamp_min(_TINY))
-            return F_all, logz
-        Ats, Ms = A.transpose(1, 2).unbind(0), M.unbind(0)
-        G_all = None if functional else torch.empty_like(F_all)
-        G_rows = [None] * (m + 1) if functional else G_all.unbind(0)
-        Gs = [torch.ones_like(F_all[m])] * (m + 1)
-        if not functional:
-            G_all[m] = 1.0
-            Gs[m] = G_rows[m]
-        for k in range(m - 1, -1, -1):
-            Gs[k], _ = _rescaled_step(Ms[k + 1] * Gs[k + 1], Ats[k], G_rows[k])
-        # posteriors per chain position, normalized (scales cancel)
         if functional:
+            Ats = A.transpose(1, 2).unbind(0)
+            Gs = [torch.ones_like(F_all[m])] * (m + 1)
+            for k in range(m - 1, -1, -1):
+                Gs[k], _ = _rescaled_step(Ms[k + 1] * Gs[k + 1], Ats[k])
+            # posteriors per chain position, normalized (scales cancel)
             post = F_all * M * torch.stack(Gs)
             return post / post.sum(dim=-1, keepdim=True).clamp_min(_TINY), logz
-        post = F_all.mul_(M).mul_(G_all)
-        return post.div_(post.sum(dim=-1, keepdim=True).clamp_min(_TINY)), logz
+        # M_k ⊙ G_k lives until step k - 1 has read it: two [B, K] buffers
+        # in turn; each step writes position k's posterior over F_k ⊙ M_k,
+        # which the forward pass left in F_k's place
+        G = torch.empty((2, B, K), dtype=F_all.dtype, device=F_all.device)
+        F_rows, As = F_all.unbind(0), A.unbind(0)
+        for k in range(m - 1, -1, -1):  # M_m ⊙ G_m = M_m
+            chain_step.backward_step(G[(k + 1) % 2] if k < m - 1 else Ms[m],
+                                     As[k], Ms[k] if k else None, G[k % 2],
+                                     F_rows[k])
+        last = F_all[m].mul_(M[m])
+        last.div_(last.sum(dim=-1, keepdim=True).clamp_min(_TINY))
+        return F_all, logz
 
 
 @dataclass(frozen=True)
@@ -345,11 +299,8 @@ class HMMLayout:
         is then a leaf of its neighbour.  Where a leaf clique hangs in the
         tree does not matter: the model is the product of the clique
         potentials."""
-        tree = plan.tree
         cvs = plan.clique_vars
-        if tree.num_cliques < 2 or any(len(c) != 2 for c in cvs):
-            return None
-        if any(len(s) != 1 for s in tree.separators):
+        if not _pairwise(plan):
             return None
         occ = Counter(v for c in cvs for v in c)
         hidden = {v for v, n in occ.items() if n > 1}
@@ -358,30 +309,11 @@ class HMMLayout:
         if (not chain_cliques or len(chain_cliques) != len(hidden) - 1
                 or len({plan.sizes[v] for v in hidden}) != 1):
             return None
-        adj: Dict[int, List[int]] = {v: [] for v in hidden}
-        for c in chain_cliques:
-            a, b = cvs[c]
-            adj[a].append(c)
-            adj[b].append(c)
-        ends = sorted(v for v, cs in adj.items() if len(cs) == 1)
-        if len(ends) != 2 or any(len(cs) > 2 for cs in adj.values()):
+        walk = _walk_path(cvs, chain_cliques, by_clique=False)
+        if walk is None:
             return None
-        # walk the hidden path from the end with the smaller id
-        var_order, clique_order, transpose = [ends[0]], [], []
-        prev = -1
-        while len(clique_order) < len(chain_cliques):
-            nxt = [c for c in adj[var_order[-1]] if c != prev]
-            if len(nxt) != 1:
-                return None
-            c = prev = nxt[0]
-            a, b = cvs[c]
-            transpose.append(a != var_order[-1])
-            var_order.append(b if a == var_order[-1] else a)
-            clique_order.append(c)
-        if len(set(var_order)) != len(hidden):
-            return None
-        chain = ChainLayout(var_order, clique_order, transpose,
-                            plan.sizes[ends[0]])
+        var_order = walk[0]
+        chain = ChainLayout(*walk, plan.sizes[var_order[0]])
         pos = {v: k for k, v in enumerate(var_order)}
         leaves = []       # (card, rank, position, leaf, clique, transpose)
         rank: Dict[Tuple[int, int], int] = {}

@@ -17,7 +17,8 @@ potential whose split is kept), also the time and host time of a call that
 reads the kept operand.  ``--map`` prints instead the tree-MAP program's
 step and its fused collects against the plain ones (:func:`map_lines`),
 ``--chain`` the chain program's step (the library's product and the row
-kernel) against its plain five-launch step (:func:`chain_lines`).
+kernel) against its plain step, the product and ``reference_rows``
+(:func:`chain_lines`).
 ``--step`` adds one line per dtype for a whole
 ``posterior_batch`` of the 2^18-state clique at B = 4096 (step ms, device
 time and launches by kernel from ``torch.profiler``, copy kernels, kernel
@@ -201,7 +202,7 @@ def step_line(dev, dtype) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     import junctiontree_tpu_torch as jt
-    from junctiontree_tpu_torch.ops import factored_contract as fc
+    from junctiontree_tpu_torch.utils.timing import TIMERS
 
     rng = np.random.default_rng(0)
     names = [f"v{i}" for i in range(18)]
@@ -214,11 +215,13 @@ def step_line(dev, dtype) -> dict:
     eng = tree.engine(device=dev, dtype=dtype).set_potentials(values)
     eng.posterior_batch(masks)
     torch.cuda.synchronize()
-    k1 = fc.factored_masked_contract
-    before = (k1.launches, k1.splits)
+    before = TIMERS.counters()
     eng.posterior_batch(masks)
     torch.cuda.synchronize()
-    launches, splits = k1.launches - before[0], k1.splits - before[1]
+    after = TIMERS.counters()
+    launches, splits = (after[n] - before[n] for n in (
+        "factored_masked_contract.launches",
+        "factored_masked_contract.splits"))
     times = []
     for _ in range(10):
         t0 = time.perf_counter()
@@ -380,17 +383,16 @@ def chain_lines(dev, B=16384, K=500):
     """``--chain``: one chain step at the HMM cell's shape ([B, K] x [K, K],
     float32, TF32 off): the step's device ms forward and backward
     (``ops.chain_step``: the library's product, then the row kernel), the
-    plain step's five launches (``_rescaled_step`` and its mask multiply)
-    and, backward, the plain posterior of one position beside it, the
-    library's product alone (``torch.matmul``, A and its transposed view),
-    the row kernel alone, and the FP32 bound of the product; with the
-    step's largest error against its plain version in float32 and in
-    float64 on the same inputs, over max |plain|.  The inputs: a
+    plain step (the product, then ``chain_step.reference_rows``: what the
+    CPU, float64 and K > 1024 run), the library's product alone
+    (``torch.matmul``, A and its transposed view), the row kernel alone,
+    and the FP32 bound of the product; with the step's largest error
+    against its plain version in float32 and in float64 on the same
+    inputs, over max |plain|.  The inputs: a
     row-stochastic A, masks in [0, 1] and messages in (0, 1]."""
     import torch
 
     from junctiontree_tpu_torch.ops import chain_step
-    from junctiontree_tpu_torch.scan_executor import _rescaled_step
 
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -432,13 +434,13 @@ def chain_lines(dev, B=16384, K=500):
                                                 err(got_p, p))
 
     def plain_fwd():
-        _rescaled_step(F * M, A, out, scale)
+        torch.matmul(XM, A, out=out)
+        chain_step.reference_rows(out, Mp, scale=scale)
 
     def plain_bwd():
-        post.copy_(F)
-        _rescaled_step(M * Gn, A.t(), out)
-        p = post.mul_(Mp).mul_(out)
-        p.div_(p.sum(dim=-1, keepdim=True).clamp_min(chain_step.TINY))
+        post.copy_(FM)
+        torch.matmul(MG, A.t(), out=out)
+        chain_step.reference_rows(out, Mp, post=post)
 
     def copy():
         post.copy_(F)

@@ -16,11 +16,8 @@ tracing row: the reference has no instrumentation at all).
   counter.  With no profiler recording, a span is one check of a flag and
   a shared no-op context: no clock read, no ``record_function``.
 * **Counters** (``TIMERS.add(name, n)``): always on, one integer add at a
-  site.  ``TIMERS.counters()`` is the one table of every counter of the
-  port by name: the recorder's own (:data:`COUNTERS`) and the kernel
-  wrapper's and route's function attributes
-  (``factored_masked_contract.launches`` and the like), which keep their
-  names for their readers.
+  site.  Every counter of the port is named in :data:`COUNTERS`, and
+  ``TIMERS.counters()`` is their one table.
 """
 
 from __future__ import annotations
@@ -38,8 +35,26 @@ from torch.autograd import profiler as _autograd_profiler
 
 logger = logging.getLogger("junctiontree_tpu_torch")
 
-# the recorder's own counters, each a process-wide running total
+# every counter of the port, each a process-wide running total
 COUNTERS = (
+    # launches of the big-clique kernel (``ops.factored_contract``): all,
+    # those with bf16 inputs, and those made by a backward pass
+    "factored_masked_contract.launches",
+    "factored_masked_contract.launches_bf16",
+    "factored_masked_contract.launches_backward",
+    # float32 potentials split into the kernel's bf16 planes, and w2 or
+    # bf16 pot operands copied into an aligned buffer first
+    "factored_masked_contract.splits",
+    "factored_masked_contract.padded",
+    # contractions of the big-clique route (``big_clique_sep_message``)
+    "big_clique_sep_message.calls",
+    # kernel operands found kept beside a standing potential, made (kept or
+    # not), and put out for another (``ops.factored_contract.kept``)
+    "kept.hits",
+    "kept.misses",
+    "kept.evictions",
+    # launches of the chain step's row kernel (``ops.chain_step.rows``)
+    "chain_step.launches",
     # bytes of the batch-by-state operands the big-clique route writes: w2
     # expanded over the uncovered rest axes, and any copy the kernel
     # wrapper makes of w1 or w2
@@ -55,16 +70,11 @@ COUNTERS = (
     # bytes of the evidence masks the serving entry points place from the
     # host onto the engine's device
     "serve.mask_bytes",
-    # kept K1 layouts put out for another (``ops.factored_contract.kept``)
-    "kept.evictions",
     # [B, K] x [K, K] products of the chain program's forward and backward
     # passes (``scan_executor``), and the leaf variables whose posteriors
     # the HMM program gave
     "chain.products",
     "chain.leaf_vars",
-    # chain steps, forward and backward, that ran the fused kernel
-    # (``ops.chain_step``) in place of the plain five-launch step
-    "chain.fused_steps",
 )
 
 CALL_RING = 256  # call records kept by ``TIMERS.calls()``
@@ -240,28 +250,7 @@ class PhaseTimers:
     def counters(self) -> Dict[str, int]:
         """Every counter of the port by name, now (process-wide running
         totals; a call's change is in its :class:`CallRecord`)."""
-        from ..ops import chain_step
-        from ..ops.factored_contract import (
-            big_clique_sep_message,
-            factored_masked_contract as k1,
-            kept,
-        )
-
-        out = {
-            "factored_masked_contract.launches": k1.launches,
-            "factored_masked_contract.launches_bf16": k1.launches_bf16,
-            "factored_masked_contract.launches_backward":
-                k1.launches_backward,
-            "factored_masked_contract.splits": k1.splits,
-            "factored_masked_contract.padded": k1.padded,
-            "big_clique_sep_message.calls": big_clique_sep_message.calls,
-            "kept.hits": kept.hits,
-            "kept.misses": kept.misses,
-            "chain_step.launches": (chain_step.forward_step.launches
-                                    + chain_step.backward_step.launches),
-        }
-        out.update(self.tally)
-        return out
+        return dict(self.tally)
 
     def calls(self) -> List[CallRecord]:
         """The newest recorded calls (at most ``CALL_RING``), oldest
@@ -278,7 +267,7 @@ class PhaseTimers:
 
     def reset(self) -> None:
         """Clear the phase totals and the recorded calls (counters run
-        on, like the function attributes they sit beside)."""
+        on)."""
         self.totals.clear()
         self.counts.clear()
         self._calls.clear()

@@ -34,6 +34,7 @@ from junctiontree_tpu.ops import pallas_contract as jax_pc
 from junctiontree_tpu_torch.config import DEFAULT
 from junctiontree_tpu_torch.ops import autotune
 from junctiontree_tpu_torch.ops import factored_contract as fc
+from junctiontree_tpu_torch.utils.timing import TIMERS
 
 SHAPE = (8, 128, 128, 256)
 KEY = "f32:8x128x128:B256:cpu"
@@ -236,11 +237,13 @@ def test_measure_record_and_launch_counts(monkeypatch, k1_ms, library_ms):
     reports the card's bound, and leaves the kernel's launch counts as
     they were."""
     _timings(monkeypatch, k1=k1_ms, lib=library_ms)
-    k1 = fc.factored_masked_contract
-    before = (k1.launches, k1.launches_bf16, k1.launches_backward)
+    launches = ("factored_masked_contract.launches",
+                "factored_masked_contract.launches_bf16",
+                "factored_masked_contract.launches_backward")
+    before = [TIMERS.counters()[n] for n in launches]
     rec = autotune.measure(64, 2048, 2, 4096, device="cpu")
     jrec = jax_autotune.measure(64, 2048, 2, 4096)
-    assert (k1.launches, k1.launches_bf16, k1.launches_backward) == before
+    assert [TIMERS.counters()[n] for n in launches] == before
     assert rec["winner"] == AS_PORT[jrec["winner"]]
     assert (rec["k1_ms"], rec["library_ms"]) == (jrec["pallas_ms"], jrec["xla_ms"])
     assert rec["k1_device_ms"] == round(k1_ms / 2, 4)
@@ -255,8 +258,6 @@ def _broken_kernels(monkeypatch):
     def broken(*a, **k):
         raise RuntimeError("factored_contract kernel launch failed: no card")
 
-    broken.launches = broken.launches_bf16 = broken.launches_backward = 0
-    broken.splits = 0
     monkeypatch.setattr(fc, "factored_masked_contract", broken)
     monkeypatch.setattr(jax_pc, "factored_masked_contract", broken)
 
@@ -405,9 +406,9 @@ def test_serving_never_consults_decide_and_describe_reports_the_table(monkeypatc
         raise AssertionError("serving must not consult the measurement")
 
     monkeypatch.setattr(autotune, "decide", boom)
-    calls = fc.big_clique_sep_message.calls
+    calls = TIMERS.counters()["big_clique_sep_message.calls"]
     post, logz = eng.posterior_batch(masks)
-    assert fc.big_clique_sep_message.calls > calls
+    assert TIMERS.counters()["big_clique_sep_message.calls"] > calls
     jeng = jt_jax.create_junction_tree(factors, sizes).engine().set_potentials(values)
     jpost, jlogz = jeng.posterior_batch(masks)
     np.testing.assert_allclose(logz.numpy(), np.asarray(jlogz), rtol=1e-9)

@@ -1,14 +1,18 @@
-"""The chain program's step in float32 on the card (``ops.chain_step``:
-the library's product, then the row kernel ``csrc/chain_step.cu``) against
-the plain step (``scan_executor._rescaled_step`` and the posterior pass).
+"""The chain program's step (``ops.chain_step``: the library's product,
+then the row pass, which is the row kernel ``csrc/chain_step.cu`` in
+float32 on the card and its plain version ``reference_rows`` elsewhere)
+against the plain rescaled step (``scan_executor._rescaled_step``) and the
+functional passes.
 
-On the CPU (tier 1): the steps through the plain row pass, which repeats
-the kernel's arithmetic (the row maximum, the clamp, the divide, the next
-product's mask multiply and the backward step's posterior), are held to
-the plain step and to the chain and HMM programs' plain passes on random
-chains, impossible rows included, by running the programs through them
-(the engagement rule patched to take CPU tensors); the rule itself and the
-``chain.fused_steps`` counter are checked as they stand.
+On the CPU (tier 1): the steps, which run the plain row pass there and
+repeat the kernel's arithmetic (the row maximum, the clamp, the divide,
+the next product's mask multiply and the backward step's posterior), are
+held to the plain step; the chain program's in-place passes to its
+functional ones (a gradient through ``A``) and the HMM program to the
+general program, on random chains and the Li-Stephens model, impossible
+rows included; the engagement rule, the CPU's plain row passes, the
+functional path's bypass of the steps and the ``chain_step.launches``
+counter are checked as they stand.
 
 On the card (marked ``cuda``, skipped elsewhere): the steps against the
 plain row pass in float32 and float64 on the same inputs, forward and
@@ -37,21 +41,13 @@ from junctiontree_tpu_torch.utils.timing import TIMERS
 
 from .lshmm_reference import forward_backward
 
-FUSED = "chain.fused_steps"
+LAUNCHES = "chain_step.launches"
 
 
-def _emulate(monkeypatch):
-    """Chains of any dtype on any device take the fused path, with the
-    plain row pass in place of the kernel."""
-    monkeypatch.setattr(chain_step, "engages",
-                        lambda dtype, device, card: card <= chain_step.K_MAX)
-    monkeypatch.setattr(chain_step, "rows", chain_step.reference_rows)
-
-
-def _fused_steps(fn):
-    before = TIMERS.counters()[FUSED]
+def _launches(fn):
+    before = TIMERS.counters()[LAUNCHES]
     out = fn()
-    return out, TIMERS.counters()[FUSED] - before
+    return out, TIMERS.counters()[LAUNCHES] - before
 
 
 def _chain(K, B, m, seed, dtype=torch.float64, zero_rows=(0,)):
@@ -76,7 +72,7 @@ def _layout(K, m):
 
 
 @pytest.mark.parametrize("K", [2, 37, 500])
-def test_reference_steps_equal_the_plain_step(monkeypatch, K):
+def test_reference_steps_equal_the_plain_step(K):
     """One forward step through the plain row pass as ``_rescaled_step`` of
     the masked messages times the next mask, bit for bit (the last step's
     without it); one backward step's M_k ⊙ G_k likewise, and its posterior
@@ -86,7 +82,6 @@ def test_reference_steps_equal_the_plain_step(monkeypatch, K):
     A, M = _chain(K, B, 2, seed=K, dtype=torch.float32, zero_rows=(0, 4))
     F, G = M[0].clone() + 0.5, M[2].clone()
     out, scale = torch.empty((B, K)), torch.empty((B, 1))
-    monkeypatch.setattr(chain_step, "rows", chain_step.reference_rows)
     chain_step.forward_step(F * M[1], A[0], M[2], out, scale)
     want, s = _rescaled_step(F * M[1], A[0])
     assert torch.equal(out, want * M[2]) and torch.equal(scale, s)
@@ -111,51 +106,50 @@ def test_reference_steps_equal_the_plain_step(monkeypatch, K):
 @pytest.mark.parametrize("backward", [False, True])
 def test_reference_rows_without_a_mask(backward):
     """Without a mask the forward row pass leaves y / s, the backward one
-    leaves the product as it is and writes only the posterior; a wrapper
-    call counts one launch."""
+    leaves the product as it is and writes only the posterior; a step on
+    the CPU launches no kernel."""
     g = torch.Generator().manual_seed(7)
     A, x, post = (torch.rand(s, generator=g) for s in ((6, 6), (3, 6),
                                                        (3, 6)))
     y = x @ (A.t() if backward else A)
-    before = (chain_step.forward_step.launches,
-              chain_step.backward_step.launches)
     out = torch.empty_like(x)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(chain_step, "rows", chain_step.reference_rows)
+
+    def step():
         if backward:
             p = post.clone()
             chain_step.backward_step(x, A, None, out, p)
-            assert torch.equal(out, y)
-            want = post * (y / y.amax(dim=-1, keepdim=True))
-            torch.testing.assert_close(
-                p, want / want.sum(dim=-1, keepdim=True), rtol=1e-6, atol=0)
-        else:
-            chain_step.forward_step(x, A, None, out)
-            assert torch.equal(out, y / y.amax(dim=-1, keepdim=True))
-    assert (chain_step.forward_step.launches - before[0],
-            chain_step.backward_step.launches - before[1]) == (
-        (0, 1) if backward else (1, 0))
+            return p
+        chain_step.forward_step(x, A, None, out)
+
+    p, n = _launches(step)
+    assert n == 0
+    if backward:
+        assert torch.equal(out, y)
+        want = post * (y / y.amax(dim=-1, keepdim=True))
+        torch.testing.assert_close(
+            p, want / want.sum(dim=-1, keepdim=True), rtol=1e-6, atol=0)
+    else:
+        assert torch.equal(out, y / y.amax(dim=-1, keepdim=True))
 
 
 @pytest.mark.parametrize("m", [1, 2, 7])
 @pytest.mark.parametrize("K", [2, 37, 500])
-def test_program_through_the_reference_equals_the_plain_passes(
-        monkeypatch, K, m):
-    """The chain program with every step through the wrapper (forward,
-    backward with G in two buffers, each position's posterior written as
-    the pass goes, the last position's after it) against its plain passes:
+def test_program_through_the_reference_equals_the_plain_passes(K, m):
+    """The chain program's in-place passes (every step through
+    ``chain_step``: forward, backward with G in two buffers, each
+    position's posterior written as the pass goes, the last position's
+    after it) against its functional passes (a gradient through ``A``):
     posteriors and logZ within float64 rounding, impossible rows zero with
-    logZ = -inf, 2m fused steps counted."""
+    logZ = -inf."""
     B = 5 if K == 500 else 11
     A, M = _chain(K, B, m, seed=10 * K + m, zero_rows=(0, 3))
     lay = _layout(K, m)
-    plain_post, plain_z = chain_posterior_program(None, lay)(A, M.clone())
-    with monkeypatch.context() as mp:
-        _emulate(mp)
-        (post, z), n = _fused_steps(
-            lambda: chain_posterior_program(None, lay)(A, M.clone()))
-        zf, nz = _fused_steps(lambda: chain_logz_program(None, lay)(A, M))
-    assert n == 2 * m and nz == m
+    Ag = A.clone().requires_grad_()
+    plain_post, plain_z = (t.detach() for t in chain_posterior_program(
+        None, lay)(Ag, M))
+    post, z = chain_posterior_program(None, lay)(A, M.clone())
+    zf = chain_logz_program(None, lay)(A, M)
+    assert not post.requires_grad and not z.requires_grad
     torch.testing.assert_close(post, plain_post, rtol=0, atol=1e-12)
     torch.testing.assert_close(z, plain_z, rtol=1e-12, atol=0)
     torch.testing.assert_close(zf, plain_z, rtol=1e-12, atol=0)
@@ -165,11 +159,10 @@ def test_program_through_the_reference_equals_the_plain_passes(
 
 
 @pytest.mark.parametrize("typed_every", [1, 10])
-def test_hmm_program_through_the_reference(monkeypatch, typed_every):
-    """The HMM program (leaves folded into the masks, the chain's passes,
-    the leaves' posteriors) with its steps through the wrapper against its
-    plain passes, in float64 on the Li-Stephens model; 2 (M - 1) fused
-    steps a call."""
+def test_hmm_program_through_the_reference(typed_every):
+    """The HMM program (leaves folded into the masks, the chain's passes
+    through ``chain_step``, the leaves' posteriors) against the general
+    program, in float64 on the Li-Stephens model."""
     K, M, B = 40, 21, 6
     factors, sizes, values = li_stephens_model(K, M, seed=3)
     eng = jt.create_junction_tree(factors, sizes).engine(
@@ -181,11 +174,9 @@ def test_hmm_program_through_the_reference(monkeypatch, typed_every):
         mk[np.arange(B), rng.integers(2, size=B)] = 1.0
         masks[y] = mk
     masks["y0"][0] = 0.0
-    plain, plain_z = eng.posterior_batch(masks)
-    with monkeypatch.context() as mp:
-        _emulate(mp)
-        (post, z), n = _fused_steps(lambda: eng.posterior_batch(masks))
-    assert n == 2 * (M - 1)
+    plain, plain_z = eng.posterior_batch(masks, mode="general")
+    post, z = eng.posterior_batch(masks)
+    assert ("hmm",) in eng._programs
     torch.testing.assert_close(z, plain_z, rtol=1e-12, atol=0)
     assert z[0] == -float("inf")
     for v in range(len(post)):
@@ -219,57 +210,60 @@ def test_block_width(card, want):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_cpu_chains_keep_the_plain_steps(dtype):
-    """On the CPU the uniform chain's and the HMM's programs count no fused
-    step, in float32 and float64."""
-    factors, sizes, values = chain_bn_model(6, card=3, seed=1)
-    eng = jt.create_junction_tree(factors, sizes).engine(
-        device="cpu", dtype=dtype).set_potentials(values)
-    _, n = _fused_steps(lambda: eng.posterior_batch(
-        {"x2": np.eye(3)[[0, 1, 2, 1]]}))
-    assert n == 0 and ("chain",) in eng._programs
-    factors, sizes, values = li_stephens_model(8, 6, seed=1)
-    eng = jt.create_junction_tree(factors, sizes).engine(
-        device="cpu", dtype=dtype).set_potentials(values)
-    _, n = _fused_steps(lambda: eng.posterior_batch(
-        {"y1": np.eye(2)[[0, 1, 1]]}))
-    assert n == 0 and ("hmm",) in eng._programs
+def test_cpu_chains_keep_the_plain_steps(monkeypatch, dtype):
+    """On the CPU the uniform chain's and the HMM's programs run the plain
+    row pass 2m times a call (m steps each way) and launch no kernel, in
+    float32 and float64."""
+    passes, plain = [], chain_step.reference_rows
+    monkeypatch.setattr(chain_step, "reference_rows",
+                        lambda *a, **k: passes.append(1) or plain(*a, **k))
+    for model, ev, program in (
+            (chain_bn_model(6, card=3, seed=1),
+             {"x2": np.eye(3)[[0, 1, 2, 1]]}, "chain"),
+            (li_stephens_model(8, 6, seed=1), {"y1": np.eye(2)[[0, 1, 1]]},
+             "hmm")):
+        factors, sizes, values = model
+        eng = jt.create_junction_tree(factors, sizes).engine(
+            device="cpu", dtype=dtype).set_potentials(values)
+        del passes[:]
+        _, n = _launches(lambda: eng.posterior_batch(ev))
+        assert (program,) in eng._programs
+        assert n == 0 and len(passes) == 2 * 5
 
 
 def test_gradient_keeps_the_plain_steps(monkeypatch):
-    """Under a gradient through A the steps are functional: they bypass the
-    fused path even where it engages, and the gradient equals the one of
-    the plain program; without the gradient the same call runs 2m fused
-    steps."""
+    """Under a gradient through A the steps are functional: the program
+    never calls ``forward_step`` or ``backward_step``, and its gradient
+    equals that of the unscaled forward recursion; without the gradient
+    the same call runs m steps each way."""
     K, B, m = 4, 6, 5
     A, M = _chain(K, B, m, seed=5)
     lay = _layout(K, m)
-    with monkeypatch.context() as mp:
-        _emulate(mp)
-        calls, real = [], chain_step.forward_step
-
-        def record(*a, **kw):
-            calls.append(a)
-            return real(*a, **kw)
-
-        record.launches = 0
-        mp.setattr(chain_step, "forward_step", record)
-        Ag = A.clone().requires_grad_(True)
-        z, n = _fused_steps(lambda: chain_logz_program(None, lay)(Ag, M))
-        z[1:].sum().backward()
-        assert n == 0 and not calls
-        with torch.no_grad():
-            _, n = _fused_steps(lambda: chain_posterior_program(None, lay)(
-                Ag, M.clone()))
-        assert n == 2 * m and len(calls) == m
+    calls = []
+    for name in ("forward_step", "backward_step"):
+        real = getattr(chain_step, name)
+        monkeypatch.setattr(chain_step, name, lambda *a, real=real, name=name:
+                            calls.append(name) or real(*a))
+    Ag = A.clone().requires_grad_(True)
+    chain_logz_program(None, lay)(Ag, M)[1:].sum().backward()
+    post, _ = chain_posterior_program(None, lay)(A.clone().requires_grad_(),
+                                                 M)
+    assert not calls and post.requires_grad
+    with torch.no_grad():
+        chain_posterior_program(None, lay)(Ag, M.clone())
+    assert calls == ["forward_step"] * m + ["backward_step"] * m
+    # the unscaled recursion over the possible rows: logZ = log 1^T ...
     A2 = A.clone().requires_grad_(True)
-    chain_logz_program(None, lay)(A2, M)[1:].sum().backward()
-    torch.testing.assert_close(Ag.grad, A2.grad, rtol=0, atol=0)
+    F = torch.ones((B - 1, K), dtype=A.dtype)
+    for k in range(m):
+        F = (F * M[k, 1:]) @ A2[k]
+    torch.log((F * M[m, 1:]).sum(dim=-1)).sum().backward()
+    torch.testing.assert_close(Ag.grad, A2.grad, rtol=1e-10, atol=1e-12)
 
 
 def test_counters_table_reports_the_launches():
     table = TIMERS.counters()
-    assert FUSED in table and "chain_step.launches" in table
+    assert LAUNCHES in table and "chain.fused_steps" not in table
 
 
 # ---------------------------------------------------------------- card
@@ -317,8 +311,7 @@ def test_kernel_equals_plain(cuda, K, B):
     no NaN."""
     A, x, m, mpost, post0 = _card_inputs(K, B, cuda, seed=K * 7 + B)
     xm, fm = x * m, post0 * mpost  # the operand; F_k ⊙ M_k
-    launches = (chain_step.forward_step.launches,
-                chain_step.backward_step.launches)
+    launches = TIMERS.counters()[LAUNCHES]
     for last in (False, True):
         mn = None if last else mpost
         out, scale = torch.empty_like(m), torch.empty((B, 1), device=cuda)
@@ -344,8 +337,7 @@ def test_kernel_equals_plain(cuda, K, B):
             assert float(scale[r]) == pytest.approx(1e-38, rel=1e-6)
             assert not post[r].any()
         assert not any(t.isnan().any() for t in (out, scale, g, post))
-    assert (chain_step.forward_step.launches - launches[0],
-            chain_step.backward_step.launches - launches[1]) == (2, 2)
+    assert TIMERS.counters()[LAUNCHES] - launches == 4
 
 
 @pytest.mark.cuda
@@ -369,7 +361,7 @@ def test_hmm_program_at_the_cell_shape(cuda):
     """The benchmark cell's shape: the Li-Stephens model with K = 500
     templates and 256 sites, B = 16,384 targets, one site in ten typed
     (alleles drawn uniformly), row 0 impossible, float32 on the card.  510
-    fused steps a call; against the plain float64 Li-Stephens recursion on
+    row-kernel launches a call; against the plain float64 Li-Stephens recursion on
     257 rows (row 0 and 256 more), within the cell's limits: posteriors
     1e-3, logZ 5e-3, no bad row."""
     K, M, B = 500, 256, 16384
@@ -389,9 +381,7 @@ def test_hmm_program_at_the_cell_shape(cuda):
     post, logz = eng.posterior_batch(masks)
     torch.cuda.synchronize()
     after = TIMERS.counters()
-    assert after[FUSED] - before[FUSED] == 2 * (M - 1)
-    assert after["chain_step.launches"] - before["chain_step.launches"] \
-        == 2 * (M - 1)
+    assert after[LAUNCHES] - before[LAUNCHES] == 2 * (M - 1)
     rows = np.concatenate([[0], rng.choice(np.arange(1, B), 256,
                                            replace=False)])
     # the recursion in float64 on the host, from the generator's prior,

@@ -14,6 +14,17 @@ import torch
 import junctiontree_tpu_torch as jt
 from junctiontree_tpu_torch.config import DEFAULT
 from junctiontree_tpu_torch.ops import factored_contract as fc
+from junctiontree_tpu_torch.utils.timing import TIMERS
+
+
+def _count(name):
+    """The port's counter ``name`` now (``TIMERS.counters()``)."""
+    return TIMERS.counters()[name]
+
+
+def _k1(name):
+    """The kernel wrapper's counter ``factored_masked_contract.<name>``."""
+    return _count("factored_masked_contract." + name)
 
 
 @pytest.fixture(autouse=True)
@@ -56,10 +67,10 @@ def test_kernel_matches_plain(cuda, R1, R2, C, B, dtype):
         torch.rand(shape, generator=g, device=cuda).to(dtype)
         for shape in ((R1, R2, C), (B, R1), (B, R2))
     )
-    before = fc.factored_masked_contract.launches
+    before = _k1("launches")
     got = fc.factored_masked_contract(pot, w1, w2)
     torch.cuda.synchronize()
-    assert fc.factored_masked_contract.launches == before + 1
+    assert _k1("launches") == before + 1
     assert got.dtype == torch.float32 and tuple(got.shape) == (B, C)
     want = fc.reference_factored_contract(pot, w1, w2)
     assert _rel_err(got, want) <= _tol(dtype)
@@ -114,11 +125,11 @@ def test_f32_kernel_on_path_shapes_within_2e6(cuda, R1, R2, C):
     w1 = torch.rand((B, R1), generator=g, device=cuda)
     w2 = torch.rand((B, R2), generator=g, device=cuda)
     k1 = fc.factored_masked_contract
-    before = k1.splits
+    before = _k1("splits")
     got = k1(pot, w1, w2)
     again = k1(pot, w1, w2)
     torch.cuda.synchronize()
-    assert k1.splits == before + 2
+    assert _k1("splits") == before + 2
     assert _rel_err(got, fc.reference_factored_contract(pot, w1, w2)) <= 2e-6
     assert torch.equal(got, again)
 
@@ -221,29 +232,29 @@ def test_bf16_padding_count(cuda):
             torch.bfloat16).permute(1, 0, 2)
         w1 = torch.rand((4096, R1), device=cuda)
         w2 = torch.rand((4096, R2), device=cuda).to(torch.bfloat16)
-        before = k1.padded
+        before = _k1("padded")
         k1(pot, w1, w2)
         k1(pot.float(), w1, w2.float())
-        assert k1.padded == before
+        assert _k1("padded") == before
     wbuf = torch.rand(130 * 40 + 1, device=cuda).to(torch.bfloat16)
     w2 = wbuf[1:].view(130, 40)               # address not 16-byte aligned
     pot = torch.rand((8, 40, 2), device=cuda).to(torch.bfloat16)  # N = 16
     w1 = torch.rand((130, 8), device=cuda)
-    before = k1.padded
+    before = _k1("padded")
     k1(pot, w1, w2)
-    assert k1.padded == before + 1
+    assert _k1("padded") == before + 1
     k1(pot[:, :, :1].contiguous(), w1, w2)     # N = 8, w2 still offset
-    assert k1.padded == before + 2
+    assert _k1("padded") == before + 2
     k1(torch.rand((3, 40, 3), device=cuda).to(torch.bfloat16),
        torch.rand((130, 3), device=cuda), w2.clone())  # N = 9, w2 aligned
-    assert k1.padded == before + 3
+    assert _k1("padded") == before + 3
     fbuf = torch.rand(130 * 40 + 1, device=cuda)
     pot = torch.rand((40, 40, 2), device=cuda)  # N = 80: the tensor cores
     w1 = torch.rand((130, 40), device=cuda)
     k1(pot, w1, fbuf[:-1].view(130, 40))       # aligned: no copy
-    assert k1.padded == before + 3
+    assert _k1("padded") == before + 3
     k1(pot, w1, fbuf[1:].view(130, 40))        # one float in: copied
-    assert k1.padded == before + 4
+    assert _k1("padded") == before + 4
     torch.cuda.synchronize()
 
 
@@ -397,10 +408,10 @@ def test_posterior_batch_routes_through_kernel(cuda, monkeypatch):
     evs = jt.random_evidence_batch(tree.plan, 300, ["t0", "t1", "h5", "h6"], seed=2)
     masks = jt.batch_masks_sparse(tree.plan, evs)
     masks["t0"][1] = 0.0
-    before = fc.factored_masked_contract.launches
+    before = _k1("launches")
     post, logz = tree.engine(device=cuda).set_potentials(values).posterior_batch(masks)
     torch.cuda.synchronize()
-    assert fc.factored_masked_contract.launches > before
+    assert _k1("launches") > before
     rpost, rlogz = tree.engine(device="cpu", dtype=torch.float64).set_potentials(values) \
         .posterior_batch(masks)
     assert torch.isneginf(logz[1]) and all((p[1] == 0).all() for p in post)
@@ -432,17 +443,17 @@ def test_bf16_serving_launches_kernel_with_bf16_inputs(cuda, monkeypatch):
     masks = jt.batch_masks_sparse(tree.plan, evs)
     masks["t0"][1] = 0.0
     e32 = tree.engine(device=cuda, dtype=torch.float32).set_potentials(values)
-    before = fc.factored_masked_contract.launches
+    before = _k1("launches")
     want, want_logz = e32.posterior_batch(masks)
-    n32 = fc.factored_masked_contract.launches - before
+    n32 = _k1("launches") - before
     e16 = tree.engine(device=cuda, dtype=torch.bfloat16).set_potentials(values)
-    before = fc.factored_masked_contract.launches
-    before16 = fc.factored_masked_contract.launches_bf16
+    before = _k1("launches")
+    before16 = _k1("launches_bf16")
     post, logz = e16.posterior_batch(masks)
     torch.cuda.synchronize()
-    n16 = fc.factored_masked_contract.launches - before
+    n16 = _k1("launches") - before
     assert n32 > 0 and n16 == n32
-    assert fc.factored_masked_contract.launches_bf16 - before16 == n16
+    assert _k1("launches_bf16") - before16 == n16
     assert logz.dtype == torch.float32 and all(p.dtype == torch.float32 for p in post)
     assert torch.isneginf(logz[1]) and all((p[1] == 0).all() for p in post)
     fin = torch.isfinite(want_logz)
@@ -577,12 +588,12 @@ def test_entropy_joint_incremental_route_through_kernel(cuda, monkeypatch):
     monkeypatch.setattr(
         fc, "reference_factored_contract",
         lambda *a: plain_calls.append(1) or plain(*a))
-    before = kernel.launches
-    calls_before = fc.big_clique_sep_message.calls
+    before = _k1("launches")
+    calls_before = _count("big_clique_sep_message.calls")
     got = _routed_queries(cuda, torch.float32, masks, upd)
     torch.cuda.synchronize()
-    launched = kernel.launches - before
-    assert launched == fc.big_clique_sep_message.calls - calls_before > 10
+    launched = _k1("launches") - before
+    assert launched == _count("big_clique_sep_message.calls") - calls_before > 10
     assert not plain_calls
     want = _routed_queries("cpu", torch.float64, masks, upd)
     for g, w in zip(got, want):
@@ -739,10 +750,10 @@ def test_function_gradients_match_autograd_of_plain(cuda, R1, R2, C, B):
         return torch.autograd.grad(out, leaves, up)
 
     k1 = fc.factored_masked_contract
-    before, back = k1.launches, k1.launches_backward
+    before, back = _k1("launches"), _k1("launches_backward")
     got = grads(k1)
     torch.cuda.synchronize()
-    assert k1.launches == before + 3 and k1.launches_backward == back + 2
+    assert _k1("launches") == before + 3 and _k1("launches_backward") == back + 2
     want = grads(fc.reference_factored_contract)
     for a, b in zip(got, want):
         assert a.shape == b.shape and a.dtype == b.dtype
@@ -760,10 +771,10 @@ def test_function_skips_gradients_nobody_asks_for(cuda):
                    for s in ((8, 64, 2), (40, 8), (40, 64)))
     k1 = fc.factored_masked_contract
     pot.requires_grad_(True)
-    before, back = k1.launches, k1.launches_backward
+    before, back = _k1("launches"), _k1("launches_backward")
     out = k1(pot, w1, w2)
     (dpot,) = torch.autograd.grad(out.sum(), [pot])
-    assert k1.launches == before + 1 and k1.launches_backward == back
+    assert _k1("launches") == before + 1 and _k1("launches_backward") == back
     ref = pot.detach().clone().requires_grad_(True)
     (want,) = torch.autograd.grad(
         fc.reference_factored_contract(ref, w1, w2).sum(), [ref])
@@ -807,12 +818,11 @@ def test_gradient_flows_through_big_clique_sep_message(cuda):
             msgs=[((0, 2), leaves[3])])
         return out, torch.autograd.grad((out ** 2).sum(), leaves)
 
-    k1 = fc.factored_masked_contract
-    before, back = k1.launches, k1.launches_backward
+    before, back = _k1("launches"), _k1("launches_backward")
     out, got = run(torch.float32)
-    assert k1.launches == before + 3 and k1.launches_backward == back + 2
+    assert _k1("launches") == before + 3 and _k1("launches_backward") == back + 2
     ref, want = run(torch.float64)
-    assert k1.launches == before + 3
+    assert _k1("launches") == before + 3
     assert _rel_err(out.double(), ref) <= 1e-5
     for a, b in zip(got, want):
         assert _rel_err(a.double(), b) <= 1e-4
@@ -838,18 +848,17 @@ def test_expected_counts_route_through_kernel(cuda, monkeypatch):
     data = rng.integers(0, 2, size=(200, plan.num_vars))
     data[rng.random(data.shape) < 0.3] = -1
     masks = learn.masks_from_data(plan, data)
-    k1 = fc.factored_masked_contract
-    before, back = k1.launches, k1.launches_backward
+    before, back = _k1("launches"), _k1("launches_backward")
     counts = learn.expected_counts(plan, values, masks, device=cuda)
-    assert k1.launches - before > k1.launches_backward - back > 0
-    mid = k1.launches
+    assert _k1("launches") - before > _k1("launches_backward") - back > 0
+    mid = _k1("launches")
     want = learn.expected_counts(plan, values, masks, device=cuda,
                                  dtype=torch.float64)
-    assert k1.launches == mid  # float64 takes the plain version
+    assert _k1("launches") == mid  # float64 takes the plain version
     for c, w in zip(counts, want):
         np.testing.assert_allclose(c, w, rtol=1e-4, atol=1e-4)
     thetas, hist = learn.fit_mle_missing(plan, data, steps=3, device=cuda)
-    assert hist[-1] > hist[0] and k1.launches > mid
+    assert hist[-1] > hist[0] and _k1("launches") > mid
 
 
 @pytest.mark.cuda
@@ -877,9 +886,9 @@ def test_chain_program_under_grad_on_cuda(cuda, monkeypatch):
     data[rng.random(data.shape) < 0.4] = -1
     M = torch.tensor(chain_masks_from_data(plan, layout, data), device=cuda)
     prog = chain_posterior_program(plan, layout)
-    before = chain_step.forward_step.launches
+    before = _count("chain_step.launches")
     postk, logzk = prog(A, M)
-    assert chain_step.forward_step.launches - before == len(
+    assert _count("chain_step.launches") - before == 2 * len(
         layout.clique_order)
     with monkeypatch.context() as mp:
         mp.setattr(chain_step, "engages", lambda *a: False)
@@ -1027,8 +1036,7 @@ def test_autotune_decision_on_a_serving_shape(cuda, monkeypatch):
     monkeypatch.setattr(autotune, "_CACHE", None)
     monkeypatch.setattr(autotune, "_VALIDATED", set())
     assert DEFAULT.autotune  # the package default
-    k1 = fc.factored_masked_contract
-    before = (k1.launches, k1.launches_bf16)
+    before = (_k1("launches"), _k1("launches_bf16"))
     for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         winner = autotune.decide(64, 2048, 2, 4096, dtype=name, device=cuda)
         key = f"{name}:64x2048x2:B4096:{torch.cuda.get_device_name(cuda)}"
@@ -1045,7 +1053,7 @@ def test_autotune_decision_on_a_serving_shape(cuda, monkeypatch):
         got = fc.library_factored_contract(pot, w1, w2)
         assert got.dtype == torch.float32
         assert _rel_err(got, fc.reference_factored_contract(pot, w1, w2)) <= _tol(dtype)
-    assert (k1.launches, k1.launches_bf16) == before
+    assert (_k1("launches"), _k1("launches_bf16")) == before
     monkeypatch.setattr(DEFAULT, "big_clique_min_states", 1 << 8)
     factors, sizes, values = _hub_model()
     tree = jt.create_junction_tree(factors, sizes)
@@ -1053,11 +1061,11 @@ def test_autotune_decision_on_a_serving_shape(cuda, monkeypatch):
         tree.plan, 64, ["t0", "t1", "h5"], seed=3))
     for dtype in (torch.float32, torch.bfloat16):
         eng = tree.engine(device=cuda, dtype=dtype).set_potentials(values)
-        launches = k1.launches  # bf16 launches included
-        calls = fc.big_clique_sep_message.calls
+        launches = _k1("launches")  # bf16 launches included
+        calls = _count("big_clique_sep_message.calls")
         eng.posterior_batch(masks)
-        routed = fc.big_clique_sep_message.calls - calls
-        assert k1.launches - launches == routed > 0
+        routed = _count("big_clique_sep_message.calls") - calls
+        assert _k1("launches") - launches == routed > 0
 
 
 @pytest.mark.cuda
@@ -1108,10 +1116,10 @@ def _mesh_devices(n):
 
 
 def _launches_of(fn):
-    before = fc.factored_masked_contract.launches
+    before = _k1("launches")
     out = fn()
     torch.cuda.synchronize()
-    return out, fc.factored_masked_contract.launches - before
+    return out, _k1("launches") - before
 
 
 @pytest.mark.cuda
@@ -1325,16 +1333,15 @@ def test_standing_potential_is_split_once(cuda, dtype):
     found; the two calls give the same bits."""
     tree, values, masks = _big_clique_engine(cuda)
     eng = tree.engine(device=cuda, dtype=dtype).set_potentials(values)
-    k1 = fc.factored_masked_contract
-    splits, misses = k1.splits, fc.kept.misses
+    splits, misses = _k1("splits"), _count("kept.misses")
     first = eng.posterior_batch(masks)
     torch.cuda.synchronize()
-    assert fc.kept.misses - misses == 19
-    assert k1.splits - splits == (19 if dtype == torch.float32 else 0)
-    splits, hits = k1.splits, fc.kept.hits
+    assert _count("kept.misses") - misses == 19
+    assert _k1("splits") - splits == (19 if dtype == torch.float32 else 0)
+    splits, hits = _k1("splits"), _count("kept.hits")
     second = eng.posterior_batch(masks)
     torch.cuda.synchronize()
-    assert k1.splits == splits and fc.kept.hits - hits == 19
+    assert _k1("splits") == splits and _count("kept.hits") - hits == 19
     assert torch.equal(first[1], second[1])
     assert all(torch.equal(a, b) for a, b in zip(first[0], second[0]))
     rep = eng.describe()["kept_layouts"]
@@ -1388,13 +1395,13 @@ def test_kept_operand_read_on_another_stream(cuda):
     lay = fc.StandingLayout(rows, [1], [0], [2], True)
     s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
     torch.cuda.synchronize()  # the operands are made on the default stream
-    hits = fc.kept.hits
+    hits = _count("kept.hits")
     with torch.cuda.stream(s1):
         a = fc.factored_masked_contract(lay, w1, w2)
     with torch.cuda.stream(s2):
         b = fc.factored_masked_contract(lay, w1, w2)
     torch.cuda.synchronize()
-    assert fc.kept.hits == hits + 1  # s2 read what s1 kept
+    assert _count("kept.hits") == hits + 1  # s2 read what s1 kept
     assert torch.equal(a, b)
     assert torch.equal(a, fc.factored_masked_contract(lay.tensor(), w1, w2))
 
@@ -1419,25 +1426,24 @@ def test_serving_under_inference_mode(cuda):
     tree, values, masks = _big_clique_engine(cuda, seed=4)
     eng = tree.engine(device=cuda).set_potentials(values)
     want = eng.posterior_batch(masks), eng.entropy_batch(masks)
-    k1 = fc.factored_masked_contract
     with torch.inference_mode():
         got = eng.posterior_batch(masks)
-        splits, entries = k1.splits, len(fc._KEPT)
+        splits, entries = _k1("splits"), len(fc._KEPT)
         h = eng.entropy_batch(masks)
-        assert k1.splits - splits == 1 and len(fc._KEPT) == entries
+        assert _k1("splits") - splits == 1 and len(fc._KEPT) == entries
         inf = tree.engine(device=cuda).set_potentials(values)
         assert all(p.is_inference() for p in inf._pots)
-        splits = k1.splits
+        splits = _k1("splits")
         got_inf = inf.posterior_batch(masks)
-        assert k1.splits - splits == 19
+        assert _k1("splits") - splits == 19
         h_inf = inf.entropy_batch(masks)
         assert inf.describe()["kept_layouts"] == {"layouts": 0, "bytes": 0}
     torch.cuda.synchronize()
     assert _same(got, want[0]) and _same(got_inf, want[0])
     assert _same(h, want[1]) and _same(h_inf, want[1])
-    splits = k1.splits
+    splits = _k1("splits")
     assert _same(inf.posterior_batch(masks), want[0])  # outside the mode too
-    assert k1.splits - splits == 19
+    assert _k1("splits") - splits == 19
 
 
 @pytest.mark.cuda
@@ -1457,14 +1463,14 @@ def test_kept_layouts_follow_the_evidence_pattern(cuda, dtype):
     want = [tree.engine(device=cuda, dtype=dtype).set_potentials(values)
             .posterior_batch(m) for m in pats]
     eng = tree.engine(device=cuda, dtype=dtype).set_potentials(values)
-    bound, k1 = eng._kept_bytes_bound(), fc.factored_masked_contract
+    bound = eng._kept_bytes_bound()
     order = [0, 0, 1, 0, 1, 0, 1, 2, 0, 1, 2] + [2] * 20
     made, splits = [], []
     for i in order:
-        misses, split = fc.kept.misses, k1.splits
+        misses, split = _count("kept.misses"), _k1("splits")
         assert _same(eng.posterior_batch(pats[i]), want[i])
-        made.append(fc.kept.misses - misses)
-        splits.append(k1.splits - split)
+        made.append(_count("kept.misses") - misses)
+        splits.append(_k1("splits") - split)
         now = eng.describe()["kept_layouts"]
         assert 0 < now["layouts"] <= 19 and now["bytes"] <= bound
     assert made[0] == 19 and made[1] == made[3] == made[5] == made[-1] == 0

@@ -19,6 +19,7 @@ import junctiontree_tpu_torch as jt
 from junctiontree_tpu.config import DEFAULT as JAX_DEFAULT
 from junctiontree_tpu_torch.config import DEFAULT
 from junctiontree_tpu_torch.ops import factored_contract as fc
+from junctiontree_tpu_torch.utils.timing import TIMERS
 
 from .util import brute_force_marginals, grid_mrf, random_factor_graph, random_values
 
@@ -236,9 +237,10 @@ def test_entropy_batch_takes_the_big_clique_route(monkeypatch):
         masks[v] = m
     masks["h4"][3] = 1.0  # one row leaves h4 unobserved
     plain, _ = engines(factors, sizes, values)
-    before = fc.big_clique_sep_message.calls
+    before = TIMERS.counters()["big_clique_sep_message.calls"]
     want_h, want_z = plain.entropy_batch(masks)
-    assert fc.big_clique_sep_message.calls == before  # 2^10 < 2^17
+    # 2^10 < 2^17
+    assert TIMERS.counters()["big_clique_sep_message.calls"] == before
 
     monkeypatch.setattr(DEFAULT, "big_clique_min_states", 1 << 8)
     monkeypatch.setattr(JAX_DEFAULT, "pallas_min_states", 1 << 8)
@@ -246,7 +248,7 @@ def test_entropy_batch_takes_the_big_clique_route(monkeypatch):
         jt.compile_plan(factors, sizes), device="cpu", dtype=torch.float32
     ).set_potentials(values)
     got_h, got_z = eng.entropy_batch(masks)
-    routed = fc.big_clique_sep_message.calls - before
+    routed = TIMERS.counters()["big_clique_sep_message.calls"] - before
     # the hub: 1 + its operands; the collect, distribute and Z steps besides
     assert routed > 5
     np.testing.assert_allclose(got_h.numpy(), want_h.numpy(), rtol=1e-4)

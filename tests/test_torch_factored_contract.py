@@ -14,6 +14,7 @@ from hypothesis import strategies as st
 
 from junctiontree_tpu.ops import pallas_contract as jax_pc
 from junctiontree_tpu_torch.ops import factored_contract as fc
+from junctiontree_tpu_torch.utils.timing import TIMERS
 
 
 def _t(x, dtype=torch.float32):
@@ -648,9 +649,10 @@ def test_tma_rows_copies_only_what_tma_cannot_take(shape, offset, copied,
     buf = torch.arange(rows * n + offset, dtype=torch.float32).to(dtype)
     t = buf[offset:].view(rows, n)
     assert (t.data_ptr() % 16 == 0) == (offset % per == 0)
-    before = fc.factored_masked_contract.padded
+    before = TIMERS.counters()["factored_masked_contract.padded"]
     got, ld = fc._tma_rows(t)
-    assert fc.factored_masked_contract.padded - before == int(copied)
+    assert TIMERS.counters()["factored_masked_contract.padded"] - before \
+        == int(copied)
     assert (got.data_ptr() == t.data_ptr()) == (not copied)
     assert ld % per == 0 and got.data_ptr() % 16 == 0 and ld >= n
     assert torch.equal(got[:, :n], t) and not got[:, n:].any()
@@ -683,7 +685,7 @@ def test_sep_message_hands_the_kernel_its_layout(monkeypatch):
 
 def test_cpu_wrapper_launches_nothing():
     pot, w1, w2 = torch.ones(2, 3, 1), torch.ones(4, 2), torch.ones(4, 3)
-    before = fc.factored_masked_contract.launches
+    before = TIMERS.counters()["factored_masked_contract.launches"]
     out = fc.factored_masked_contract(pot, w1, w2)
-    assert fc.factored_masked_contract.launches == before
+    assert TIMERS.counters()["factored_masked_contract.launches"] == before
     assert torch.equal(out, torch.full((4, 1), 6.0))

@@ -17,6 +17,7 @@ from junctiontree_tpu.config import DEFAULT as JAX_DEFAULT
 from junctiontree_tpu_torch.config import DEFAULT
 from junctiontree_tpu_torch.models import chain_bn_model, grid_mrf_model
 from junctiontree_tpu_torch.ops import factored_contract as fc
+from junctiontree_tpu_torch.utils.timing import TIMERS
 
 TOL = dict(rtol=1e-9, atol=1e-12)
 
@@ -202,17 +203,18 @@ def test_session_takes_the_big_clique_route(monkeypatch):
         plain.plan, 5, [f"t{i}" for i in range(0, 10, 2)] + ["h1"], seed=4))
     upd = {"t3": np.tile(np.array([[0.0, 1.0]], dtype=np.float32), (5, 1))}
     qvars = ["h0", "t8", "h7"]
-    before = fc.big_clique_sep_message.calls
+    before = TIMERS.counters()["big_clique_sep_message.calls"]
     want_posts, want_logz = plain.incremental(base).query(upd, qvars)
-    assert fc.big_clique_sep_message.calls == before  # 2^10 < 2^17
+    # 2^10 < 2^17
+    assert TIMERS.counters()["big_clique_sep_message.calls"] == before
 
     monkeypatch.setattr(DEFAULT, "big_clique_min_states", 1 << 8)
     monkeypatch.setattr(JAX_DEFAULT, "pallas_min_states", 1 << 8)
     eng, ref = engines(factors, sizes, values, dtype=torch.float32)
     sess = eng.incremental(base)
-    opened = fc.big_clique_sep_message.calls - before
+    opened = TIMERS.counters()["big_clique_sep_message.calls"] - before
     posts, logz = sess.query(upd, qvars)
-    delta = fc.big_clique_sep_message.calls - before - opened
+    delta = TIMERS.counters()["big_clique_sep_message.calls"] - before - opened
     assert opened + delta > 0
     import junctiontree_tpu.ops.pallas_contract as jax_pc
 

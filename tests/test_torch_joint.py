@@ -22,6 +22,7 @@ from junctiontree_tpu.config import DEFAULT as JAX_DEFAULT
 from junctiontree_tpu_torch.config import DEFAULT
 from junctiontree_tpu_torch.models import chain_bn_model
 from junctiontree_tpu_torch.ops import factored_contract as fc
+from junctiontree_tpu_torch.utils.timing import TIMERS
 
 from .util import brute_force_marginals, grid_mrf, random_factor_graph, random_values
 
@@ -320,9 +321,10 @@ def test_joint_marginal_batch_takes_the_big_clique_route(monkeypatch, qvars):
         masks[v] = m
     masks["h5"][2] = 0.0  # an impossible row
     plain, _ = engines(factors, sizes, values)
-    before = fc.big_clique_sep_message.calls
+    before = TIMERS.counters()["big_clique_sep_message.calls"]
     want_t, want_z = plain.joint_marginal_batch(qvars, masks)
-    assert fc.big_clique_sep_message.calls == before  # 2^10 < 2^17
+    # 2^10 < 2^17
+    assert TIMERS.counters()["big_clique_sep_message.calls"] == before
 
     monkeypatch.setattr(DEFAULT, "big_clique_min_states", 1 << 8)
     monkeypatch.setattr(JAX_DEFAULT, "pallas_min_states", 1 << 8)
@@ -330,7 +332,7 @@ def test_joint_marginal_batch_takes_the_big_clique_route(monkeypatch, qvars):
         jt.compile_plan(factors, sizes), device="cpu", dtype=torch.float32
     ).set_potentials(values)
     got_t, got_z = eng.joint_marginal_batch(qvars, masks)
-    assert fc.big_clique_sep_message.calls > before
+    assert TIMERS.counters()["big_clique_sep_message.calls"] > before
     assert (got_t[2] == 0).all() and got_z[2] == 0
     np.testing.assert_allclose(got_t.numpy(), want_t.numpy(), rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(got_z.numpy(), want_z.numpy(), rtol=1e-4)

@@ -18,6 +18,7 @@ import torch
 
 import junctiontree_tpu_torch as jt
 from junctiontree_tpu_torch.ops import factored_contract as fc
+from junctiontree_tpu_torch.utils.timing import TIMERS
 
 
 def _split_maker(pot, by_n, bk, planes, made):
@@ -42,9 +43,10 @@ def test_same_tensor_and_layout_hits(by_n, bk, planes):
     pot, made = _pot(), []
     key = ("axes", by_n, bk, planes)
     first = fc.kept(pot, key, _split_maker(pot, by_n, bk, planes, made))
-    hits = fc.kept.hits
+    hits = TIMERS.counters()["kept.hits"]
     again = fc.kept(pot, key, _split_maker(pot, by_n, bk, planes, made))
-    assert again is first and len(made) == 1 and fc.kept.hits == hits + 1
+    assert again is first and len(made) == 1
+    assert TIMERS.counters()["kept.hits"] == hits + 1
     want, want_exps = fc.reference_split_pot(pot, by_n, bk, planes)
     assert torch.equal(again.buf, want) and torch.equal(again.exps, want_exps)
 
@@ -384,10 +386,11 @@ def test_results_after_set_potentials_multiply_factor_and_load(
     evs = jt.random_evidence_batch(tree.plan, 6, names[:8], seed=2)
     masks = jt.batch_masks_sparse(tree.plan, evs)
     eng = tree.engine(device="cpu").set_potentials(values)
-    hits = fc.kept.hits
+    hits = TIMERS.counters()["kept.hits"]
     first = _posteriors(eng, masks)
     _assert_same(first, _posteriors(eng, masks))
-    assert fc.kept.hits - hits >= len(names) + 1  # every layout, again
+    # every layout, again
+    assert TIMERS.counters()["kept.hits"] - hits >= len(names) + 1
 
     new = [v * (1.0 + 0.5 * np.arange(v.size).reshape(v.shape) / v.size)
            for v in values]
@@ -452,7 +455,7 @@ def test_only_the_engines_potentials_are_kept(monkeypatch):
     monkeypatch.setattr(jt.config.DEFAULT, "big_clique_min_states", 1 << 10)
     tree, values, names = _with_children()
     eng = tree.engine(device="cpu").set_potentials(values)
-    calls = fc.big_clique_sep_message.calls
+    calls = TIMERS.counters()["big_clique_sep_message.calls"]
     # with evidence below every child its messages are batched and the
     # potential itself is contracted; without, each contraction takes the
     # potential times the children's unbatched messages
@@ -461,7 +464,7 @@ def test_only_the_engines_potentials_are_kept(monkeypatch):
             tree.plan, 4, observed, seed=6))
         eng.posterior_batch(masks)
         eng.entropy_batch(masks)
-    routed = fc.big_clique_sep_message.calls - calls
+    routed = TIMERS.counters()["big_clique_sep_message.calls"] - calls
     standing = eng._standing()
     assert seen and len(seen) < routed
     assert all(any(p is q for q in standing) for p in seen)
@@ -487,9 +490,9 @@ def test_kept_layouts_follow_the_evidence_pattern(monkeypatch):
     order = [0, 0, 1, 0, 1, 0, 1, 2, 0, 1, 2] + [2] * (cap + 1)
     made = []
     for i in order:
-        misses = fc.kept.misses
+        misses = TIMERS.counters()["kept.misses"]
         got = _posteriors(eng, masks[i])
-        made.append(fc.kept.misses - misses)
+        made.append(TIMERS.counters()["kept.misses"] - misses)
         _assert_same(got, want[i])
         assert eng.describe()["kept_layouts"]["layouts"] <= cap
     assert made[0] == cap and made[1] == 0 and made[-1] == 0

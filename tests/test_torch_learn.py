@@ -20,6 +20,7 @@ from junctiontree_tpu import learn as jlearn
 from junctiontree_tpu.sampling import engine_sample as jax_engine_sample
 from junctiontree_tpu_torch import learn
 from junctiontree_tpu_torch.ops import factored_contract as fc
+from junctiontree_tpu_torch.utils.timing import TIMERS
 
 from .util import chain_bn, grid_mrf, random_values
 
@@ -173,9 +174,10 @@ def test_expected_counts_missing_data_match_jax(model):
                      for v in range(plan.num_vars)], axis=1)
     data[rng.random(data.shape) < 0.35] = -1
     masks = learn.masks_from_data(plan, data)
-    calls = fc.big_clique_sep_message.calls
+    calls = TIMERS.counters()["big_clique_sep_message.calls"]
     counts = learn.expected_counts(plan, values, masks, **CPU64)
-    assert fc.big_clique_sep_message.calls == calls  # small cliques: einsum
+    # small cliques: einsum
+    assert TIMERS.counters()["big_clique_sep_message.calls"] == calls
     jcounts = jlearn.expected_counts(jplan, values, [jnp.asarray(m) for m in masks])
     for c, jc in zip(counts, jcounts):
         np.testing.assert_allclose(c, np.asarray(jc), rtol=1e-8, atol=1e-12)
