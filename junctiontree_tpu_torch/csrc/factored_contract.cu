@@ -107,12 +107,33 @@
 //     f32 the consumers, not the loads: each stage's split of w2 and its w1
 //     fold run on the same warps as the products, and the two warpgroups
 //     take turns at the tensor cores (named barriers) so that one's split
-//     overlaps the other's products; about 60% of the six passes' peak.
+//     overlaps the other's products; about 60% of the six passes' peak
+//     (the broadcast read below, with less split: 53-70% at B = 262,144).
 //     Then fixed costs a call: the prologue, the epilogue's sums.  The pot
 //     split of a standing potential is made once and kept by the wrapper.
 //   * TMA needs 16-byte aligned addresses and row strides: the wrapper
 //     copies other w2 operands into an aligned, zero-padded buffer
 //     (counted); the pot planes are aligned by construction.
+//   * The broadcast read of w2 (float32 sources, template flag BC).  The
+//     big-clique route's w2 is often a group weight g [B, R2 / rep]
+//     repeated over rep consecutive r2 (the rest variables that carry no
+//     evidence), handed over as a stride-0 view.  Where rep is a multiple
+//     of BK, each stage's 32 values of a row are one value, g[b, k0 /
+//     rep]: no w2 tile is loaded; three idle warps of the producer
+//     warpgroup write the 128 rows' values of each stage (4 B a row, read
+//     from g, which L2 holds) into the stage's slot and arrive on its
+//     full barrier, and each consumer thread splits the value of each of
+//     its two rows by the same scale rule (the largest of 32 equal values
+//     is the value itself) into its A fragments.  (A
+//     first design fetched the values into the consumers' registers a
+//     stage ahead: three kernels spilled.)  The tensor cores get the same
+//     operands in the same order, so the outputs equal those of the
+//     materialised w2 bit for bit; what goes is the wrapper's [B, R2]
+//     copy, K1's read of it, and most of the consumers' split (4 values a
+//     thread and stage instead of 16, from shared memory without a
+//     shuffle).  The BC = false instantiations are the kernel as it was.
+//     What bounds the mode: the six passes' operations (pot's planes and
+//     g are a few MB).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 (no fast math, no
 // flush-to-zero: the serving floor 1e-38 is subnormal in f32).
@@ -911,7 +932,13 @@ __device__ __forceinline__ constexpr int pass_b(int ps) {
 // barriers 2 and 3): warpgroup 0 issues a stage's products, then 1, then 0
 // the next stage's, so that one splits and folds while the other's
 // products run.
-template <int BN, Epi EPI, Src S>
+//
+// BC (float32 only): the broadcast read of w2 (see the note at the top):
+// map_w2 is unused; warps 9-11 write the 128 rows' group weights of each
+// stage into the stage's slot where the w2 tile would be (row b of r2
+// step k reads wg[b * ld_g + (k / spg) * cs_g], spg stages a group) and
+// arrive on its full barrier beside the loads of pot.
+template <int BN, Epi EPI, Src S, bool BC>
 __global__ void __launch_bounds__(NT, 1)
 factored_contract_tc_kernel(const __grid_constant__ CUtensorMap map_w2,
                             const __grid_constant__ CUtensorMap map_pot,
@@ -920,7 +947,10 @@ factored_contract_tc_kernel(const __grid_constant__ CUtensorMap map_w2,
                             int* __restrict__ counters,
                             const int* __restrict__ pot_exp, int B,
                             int R1, int R2, int C, int n_b, int n_n,
-                            int nsplit, int kparts) {
+                            int nsplit, int kparts,
+                            const float* __restrict__ wg, int64_t ld_g,
+                            int64_t cs_g, int spg) {
+  static_assert(!BC || In<S>::F32, "the broadcast read is float32's");
   constexpr bool BY_N = EPI != BY_C;
   constexpr bool IS_FOLD = EPI == FOLD || EPI == FOLD_PAIRS;
   constexpr int WV = EPI == FOLD_PAIRS ? 16 : 32;  // w1 values a box
@@ -960,9 +990,18 @@ factored_contract_tc_kernel(const __grid_constant__ CUtensorMap map_w2,
   float* const mine =
       dst + (int64_t)(BY_N ? part_id * n_n + n0 / BN : part_id) * B * C;
 
+  // BC: the NLOAD threads of warps 9-11 of the producer warpgroup load
+  // each stage's group weights of the block's rows into the stage's slot,
+  // PER rows each
+  constexpr int NLOAD = 96, PER = (BM + NLOAD - 1) / NLOAD;
   if (tid == 0) {
     for (int s = 0; s < NSTAGE; ++s) {
-      mbar_init(full + 8 * s, 1);      // the producer's expect_tx
+      // the producer's expect_tx, and each loader's arrival
+      mbar_init(full + 8 * s, 1 + (BC ? NLOAD : 0));
+      // BC: the zero words behind the slot's rows (read by the consumers)
+      if constexpr (BC)
+        *reinterpret_cast<uint4*>(smem + s * L::STAGE + BM * 4) =
+            make_uint4(0u, 0u, 0u, 0u);
       mbar_init(empty + 8 * s, NCONS / 32);  // one arrival per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -975,7 +1014,7 @@ factored_contract_tc_kernel(const __grid_constant__ CUtensorMap map_w2,
   // each role the registers setmaxnreg sets)
   const int wgroup = __shfl_sync(0xffffffffu, tid / 128, 0);
   if (wgroup == NWG) {
-    // producer: one thread keeps the ring full
+    // producer: one thread keeps the ring full (BC: and the loaders)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
     if (tid == NCONS) {
       int it = 0;  // stages so far: the ring's slot and phase
@@ -984,10 +1023,10 @@ factored_contract_tc_kernel(const __grid_constant__ CUtensorMap map_w2,
         for (int ti = 0; ti < n_iter; ++ti, ++it) {
           const int s = it % NSTAGE;
           if (it >= NSTAGE) mbar_wait(empty + 8 * s, ((it / NSTAGE) - 1) & 1);
-          mbar_expect_tx(full + 8 * s, L::STAGE);
+          mbar_expect_tx(full + 8 * s, BC ? L::B_BYTES : L::STAGE);
           const int k0 = ((BY_N ? ti : ti % nk) * S_all + z) * BK;
           const uint32_t st = ring + s * L::STAGE;
-          tma_2d(st, &map_w2, k0, tb0, full + 8 * s);
+          if constexpr (!BC) tma_2d(st, &map_w2, k0, tb0, full + 8 * s);
 #pragma unroll
           for (int p = 0; p < PLANES; ++p)
 #pragma unroll
@@ -999,6 +1038,36 @@ factored_contract_tc_kernel(const __grid_constant__ CUtensorMap map_w2,
                 tma_3d(dst_b, &map_pot, tn0, k0, ti / nk + p * R1,
                        full + 8 * s);
             }
+        }
+      }
+    }
+    if constexpr (BC) {
+      // loaders: row r of a stage's slot (where the w2 tile would be) is
+      // g[tb0 + r, stage's group], zero past B, as TMA fills
+      const int lt = tid - (NCONS + 32);
+      if (lt >= 0) {
+        int it = 0;
+        for (int tile = first; tile < n_tiles; tile += stride) {
+          const int tb0 = (tile % n_b) * BM;
+          for (int ti = 0; ti < n_iter; ++ti, ++it) {
+            const int s = it % NSTAGE;
+            if (it >= NSTAGE)
+              mbar_wait(empty + 8 * s, ((it / NSTAGE) - 1) & 1);
+            const int64_t col =
+                (int64_t)(((BY_N ? ti : ti % nk) * S_all + z) / spg) * cs_g;
+            float* slot = reinterpret_cast<float*>(smem + s * L::STAGE);
+            float v[PER];
+#pragma unroll
+            for (int i = 0; i < PER; ++i) {
+              const int r = lt + i * NLOAD, b = tb0 + r;
+              v[i] = r < BM && b < B ? __ldg(wg + (int64_t)b * ld_g + col)
+                                     : 0.f;
+            }
+#pragma unroll
+            for (int i = 0; i < PER; ++i)
+              if (lt + i * NLOAD < BM) slot[lt + i * NLOAD] = v[i];
+            mbar_arrive(full + 8 * s);  // release: the slot is written
+          }
         }
       }
     }
@@ -1073,14 +1142,49 @@ factored_contract_tc_kernel(const __grid_constant__ CUtensorMap map_w2,
         };
         float u[2] = {1.f, 1.f};  // f32: the rows' scales, undone on acc
         if constexpr (F32) {
+          uint32_t frag[KS][In<S>::PLANES][4];
+          if constexpr (BC) {
+            // every A value of row h is its group weight gv, which the
+            // loaders left in the stage's slot: its scale and split, once.
+            // Every k16 step kk and column half q (registers 2 q + h) of a
+            // plane's fragments holds that split; copies c = 2 kk + q > 0
+            // are the split XOR a word zc[c - 1] that the kernel set to
+            // zero in shared memory, which the compiler cannot fold, so
+            // that the fragments take distinct registers as the
+            // materialised read's do.  (With one register in two slots of
+            // a wgmma operand ptxas built a fragment for each instruction
+            // and spilled; one fragment for both kk ran 4-9% slower, a
+            // split for each copy 25%.)
+            const float* slot =
+                reinterpret_cast<const float*>(smem + s * L::STAGE);
+            const uint4 z4 = *reinterpret_cast<const uint4*>(slot + BM);
+            const uint32_t zc[3] = {z4.x, z4.y, z4.z};
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float gv = slot[row0 + 8 * h];
+              const int e = exponent_of(fmaxf(0.f, fabsf(gv)));
+              u[h] = pow2(e);
+              const float v = Scale(-e)(gv);
+              uint32_t sp[In<S>::PLANES];
+              if constexpr (S == F32X6)
+                split3(make_float2(v, v), sp[0], sp[1], sp[2]);
+              else
+                sp[0] = bf162_bits(__floats2bfloat162_rn(v, v));
+#pragma unroll
+              for (int c = 0; c < 2 * KS; ++c)
+#pragma unroll
+                for (int pl = 0; pl < In<S>::PLANES; ++pl)
+                  frag[c / 2][pl][2 * (c % 2) + h] =
+                      c == 0 ? sp[pl] : sp[pl] ^ zc[c > 0 ? c - 1 : 0];
+            }
+          }
           // A fragments of rows row0 + 8 h: the f32 values at r2 16 kk +
           // 8 q + 2 t + {0, 1} of the swizzled row (chunk c at c ^ (row %
           // 8)); one row at a time, since its scale needs only its own
           const unsigned char* rows =
               smem + s * L::STAGE + row0 * 128 + (t % 2) * 8;
-          uint32_t frag[KS][In<S>::PLANES][4];
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
+          for (int h = 0; h < (BC ? 0 : 2); ++h) {
             float2 x[KS][2];
             float m = 0.f;
 #pragma unroll
@@ -1367,15 +1471,24 @@ CUresult make_map(CUtensorMap* map, CUtensorMapDataType type,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int BN, Epi EPI, Src S>
+// w2's broadcast read (BC): the group weights, their strides and the
+// stages a group (unused otherwise).
+struct Groups {
+  const float* w;
+  int64_t ld, cs;
+  int spg;
+};
+
+template <int BN, Epi EPI, Src S, bool BC>
 cudaError_t launch(const CUtensorMap& mw2, const CUtensorMap& mpot,
                    const float* w1, float* dst, float* out, int* counters,
                    const int* pot_exp, int B, int R1, int R2, int C, int n_b,
-                   int n_n, int nsplit, int kparts, int grid,
+                   int n_n, int nsplit, int kparts, int grid, Groups gw,
                    cudaStream_t stream) {
-  auto kern = factored_contract_tc_kernel<BN, EPI, S>;
+  auto kern = factored_contract_tc_kernel<BN, EPI, S, BC>;
   constexpr int bytes = Layout<BN, EPI != BY_C, S>::BYTES;
-  cudaError_t e = allow_smem<factored_contract_tc_kernel<BN, EPI, S>>(bytes);
+  cudaError_t e =
+      allow_smem<factored_contract_tc_kernel<BN, EPI, S, BC>>(bytes);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)grid);
@@ -1390,7 +1503,8 @@ cudaError_t launch(const CUtensorMap& mw2, const CUtensorMap& mpot,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, kern, mw2, mpot, w1, dst, out, counters,
-                         pot_exp, B, R1, R2, C, n_b, n_n, nsplit, kparts);
+                         pot_exp, B, R1, R2, C, n_b, n_n, nsplit, kparts,
+                         gw.w, gw.ld, gw.cs, gw.spg);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -1401,17 +1515,18 @@ cudaError_t launch(const CUtensorMap& mw2, const CUtensorMap& mpot,
 // fold over column pairs (C in {2, 4, 8}) or add through shared memory.
 template <Src S> constexpr bool FOLD_128 = S != F32X6;
 
-// The kernel of (bn, tiling, C) for source S.
-template <Src S>
+// The kernel of (bn, tiling, C) for source S, reading w2 by broadcast if
+// BC.
+template <Src S, bool BC>
 cudaError_t dispatch(const CUtensorMap& mw2, const CUtensorMap& mpot,
                      const float* w1, float* dst, float* out, int* counters,
                      const int* pot_exp, int by_n, int bn, int B, int R1,
                      int R2, int C, int n_b, int n_n, int nsplit, int kparts,
-                     int grid, cudaStream_t s) {
+                     int grid, Groups gw, cudaStream_t s) {
   const bool fold = 8 % C == 0;  // C in {1, 2, 4, 8}
 #define JT_LAUNCH(BN_, EPI_)                                                 \
-  launch<BN_, EPI_, S>(mw2, mpot, w1, dst, out, counters, pot_exp, B, R1,   \
-                       R2, C, n_b, n_n, nsplit, kparts, grid, s)
+  launch<BN_, EPI_, S, BC>(mw2, mpot, w1, dst, out, counters, pot_exp, B,   \
+                           R1, R2, C, n_b, n_n, nsplit, kparts, grid, gw, s)
   if (!by_n && bn == 64) return JT_LAUNCH(64, BY_C);
   if (by_n && bn == 64) return fold ? JT_LAUNCH(64, FOLD) : JT_LAUNCH(64, SMEM);
   if (by_n && bn == 128) {
@@ -1449,13 +1564,15 @@ int max_clusters(int bn, int by_n, int cluster) {
     e = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
     return e == cudaSuccess ? n : -(int)e;
   };
-  if (!by_n) return pick(factored_contract_tc_kernel<64, BY_C, S>,
+  // (the broadcast read's kernels take the same shared memory and
+  // registers)
+  if (!by_n) return pick(factored_contract_tc_kernel<64, BY_C, S, false>,
                          Layout<64, false, S>::BYTES);
-  if (bn == 64) return pick(factored_contract_tc_kernel<64, FOLD, S>,
+  if (bn == 64) return pick(factored_contract_tc_kernel<64, FOLD, S, false>,
                             Layout<64, true, S>::BYTES);
-  return pick(
-      factored_contract_tc_kernel<128, FOLD_128<S> ? FOLD : FOLD_PAIRS, S>,
-      Layout<128, true, S>::BYTES);
+  return pick(factored_contract_tc_kernel<
+                  128, FOLD_128<S> ? FOLD : FOLD_PAIRS, S, false>,
+              Layout<128, true, S>::BYTES);
 }
 
 }  // namespace tc
@@ -1484,15 +1601,19 @@ extern "C" {
 // into `out`, and `counters` holds an int32 of zero for each output tile
 // (n_b, or n_b * n_n in the "c" tiling), left at zero: one buffer for each
 // stream, never shared between launches that may run at once.  With
-// nparts == 1 both are unused and the kernel writes `out`.  One launch;
-// returns its cudaError_t (0 on success), or MAP_ERROR + the CUresult of a
-// tensor map that could not be made; it does not synchronise.
+// nparts == 1 both are unused and the kernel writes `out`.  rep > 1 (f32
+// sources, a multiple of 32) asks for the broadcast read: w2 is then the
+// f32 group weights [B, R2 / rep] (row stride ld_w2, column stride cs_w2,
+// in elements, any alignment), each repeated over rep consecutive r2.  One
+// launch; returns its cudaError_t (0 on success), or MAP_ERROR + the
+// CUresult of a tensor map that could not be made; it does not synchronise.
 int jt_factored_contract(const void* pot, const void* w1, const void* w2,
                          void* out, void* ws, void* counters, int src,
                          int by_n, int64_t B, int64_t R1, int64_t R2,
                          int64_t C, int bn, int n_b, int n_n, int nsplit,
                          int kparts, int grid, int nparts, int64_t ld_pot,
-                         int64_t ld_w2, const void* pot_exp, void* stream) {
+                         int64_t ld_w2, int64_t cs_w2, int64_t rep,
+                         const void* pot_exp, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* res = static_cast<float*>(out);
   float* dst = static_cast<float*>(nparts > 1 ? ws : out);
@@ -1501,15 +1622,24 @@ int jt_factored_contract(const void* pot, const void* w1, const void* w2,
   const int* pexp = static_cast<const int*>(pot_exp);
   const bool f32 = src != 0;
   const int planes = src == 1 ? 3 : 1;
-  // w2 [B][ld_w2]: boxes of one 128-byte row piece by BM rows
-  CUtensorMap mw2, mpot;
-  const cuuint64_t w2_dims[2] = {(cuuint64_t)R2, (cuuint64_t)B};
-  const cuuint64_t w2_strides[1] = {(cuuint64_t)ld_w2 * (f32 ? 4 : 2)};
-  const cuuint32_t w2_box[2] = {f32 ? 32u : 64u, (cuuint32_t)tc::BM};
-  CUresult r = tc::make_map(
-      &mw2, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      w2, 2, w2_dims, w2_strides, w2_box);
+  const bool bc = rep > 1;
+  if (bc && (!f32 || rep % 32 != 0 || R2 % rep != 0))
+    return (int)cudaErrorInvalidValue;
+  const tc::Groups gw = {static_cast<const float*>(w2), ld_w2, cs_w2,
+                         (int)(rep / 32)};
+  // w2 [B][ld_w2]: boxes of one 128-byte row piece by BM rows (no map for
+  // the broadcast read)
+  CUtensorMap mw2 = {}, mpot;
+  CUresult r = CUDA_SUCCESS;
+  if (!bc) {
+    const cuuint64_t w2_dims[2] = {(cuuint64_t)R2, (cuuint64_t)B};
+    const cuuint64_t w2_strides[1] = {(cuuint64_t)ld_w2 * (f32 ? 4 : 2)};
+    const cuuint32_t w2_box[2] = {f32 ? 32u : 64u, (cuuint32_t)tc::BM};
+    r = tc::make_map(&mw2,
+                     f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                     w2, 2, w2_dims, w2_strides, w2_box);
+  }
   if (r == CUDA_SUCCESS) {
     // pot planes: [z][R2][ld_pot] bf16, z the plane ("n") or plane * R1 +
     // r1 ("c"); boxes of 64 columns by one stage of r2
@@ -1524,16 +1654,14 @@ int jt_factored_contract(const void* pot, const void* w1, const void* w2,
   }
   if (r != CUDA_SUCCESS) return MAP_ERROR + (int)r;
   const int b = (int)B, r1 = (int)R1, r2 = (int)R2, c = (int)C;
+#define JT_DISPATCH(S_, BC_)                                                 \
+  tc::dispatch<tc::S_, BC_>(mw2, mpot, a, dst, res, cnt, pexp, by_n, bn, b, \
+                            r1, r2, c, n_b, n_n, nsplit, kparts, grid, gw, s)
   cudaError_t err =
-      src == 0   ? tc::dispatch<tc::BF16>(mw2, mpot, a, dst, res, cnt, pexp,
-                                          by_n, bn, b, r1, r2, c, n_b, n_n,
-                                          nsplit, kparts, grid, s)
-      : src == 1 ? tc::dispatch<tc::F32X6>(mw2, mpot, a, dst, res, cnt, pexp,
-                                           by_n, bn, b, r1, r2, c, n_b, n_n,
-                                           nsplit, kparts, grid, s)
-                 : tc::dispatch<tc::F32X1>(mw2, mpot, a, dst, res, cnt, pexp,
-                                           by_n, bn, b, r1, r2, c, n_b, n_n,
-                                           nsplit, kparts, grid, s);
+      src == 0   ? JT_DISPATCH(BF16, false)
+      : src == 1 ? (bc ? JT_DISPATCH(F32X6, true) : JT_DISPATCH(F32X6, false))
+                 : (bc ? JT_DISPATCH(F32X1, true) : JT_DISPATCH(F32X1, false));
+#undef JT_DISPATCH
   return (int)err;
 }
 

@@ -96,7 +96,7 @@ def load_library() -> ctypes.CDLL:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.jt_factored_contract.argtypes = [
             p, p, p, p, p, p, i32, i32, i64, i64, i64, i64,
-            i32, i32, i32, i32, i32, i32, i32, i64, i64, p, p,
+            i32, i32, i32, i32, i32, i32, i32, i64, i64, i64, i64, p, p,
         ]
         lib.jt_factored_contract.restype = i32
         lib.jt_factored_contract_fma.argtypes = [

@@ -76,7 +76,9 @@ def reference_factored_contract(
     """Plain version: ``einsum("rsc,br,bs->bc")`` accumulated in at least
     float32 (bf16 inputs are widened to f32; f64 inputs stay f64).  One
     matrix product ``w2 [B, R2] x pot [R2, R1*C]``, then the W1 scaling and a
-    sum over r1, so it materializes [B, R1, C]."""
+    sum over r1, so it materializes [B, R1, C].  A 3-D ``w2`` (the route's
+    broadcast view, :func:`flat_w2`) is expanded first."""
+    w2 = flat_w2(w2)
     dt = torch.promote_types(
         torch.promote_types(pot.dtype, w1.dtype),
         torch.promote_types(w2.dtype, torch.float32),
@@ -644,19 +646,52 @@ def _check_rc(lib, rc: int, device: torch.device, stream: int) -> None:
             + lib.jt_error_string(rc).decode() + f" (code {rc})")
 
 
+def flat_w2(w2: torch.Tensor) -> torch.Tensor:
+    """``w2`` as a [B, R2] operand.  A 3-D ``w2`` [B, R2g, rep] (what
+    :func:`big_clique_sep_message` hands over: each group weight repeated
+    over ``rep`` consecutive r2, a view with stride 0 on its last axis) is
+    reshaped, which copies such a view, and the copy is counted in
+    ``route.materialized_bytes``; a 2-D ``w2`` is returned as it is."""
+    if w2.dim() != 3:
+        return w2
+    flat = w2.reshape(w2.shape[0], -1)
+    if not flat._is_view():
+        TIMERS.add("route.materialized_bytes",
+                   flat.numel() * flat.element_size())
+    return flat
+
+
+def _broadcast_read(w2: torch.Tensor, src: str) -> bool:
+    """Whether the tensor-core launch of ``src`` reads ``w2`` by broadcast
+    (``csrc/factored_contract.cu``, template flag BC): a float32 source, and
+    ``w2`` a float32 [B, R2g, rep] view repeated along its last axis
+    (stride 0) with ``rep`` a multiple of the stage's ``BK``, so that each
+    stage's r2 of a row share one value."""
+    if w2.dim() != 3 or src not in ("f32x6", "f32x1"):
+        return False
+    rep = int(w2.shape[2])
+    return (w2.dtype == torch.float32 and rep > 1 and w2.stride(2) == 0
+            and rep % BK[src] == 0)
+
+
 def _launch_kernel(
     pot, w1: torch.Tensor, w2: torch.Tensor,
     backward: bool = False, precision: str = "highest",
 ) -> torch.Tensor:
     """Check the operands and launch the CUDA kernel once (CUDA tensors
     only), after the split of a float32 ``pot`` (kept for a
-    :class:`StandingLayout`).  Returns the float32 [B, C] result; counts
-    the launch."""
-    if len(pot.shape) != 3 or w1.dim() != 2 or w2.dim() != 2:
-        raise ValueError("expected pot [R1, R2, C], w1 [B, R1], w2 [B, R2]")
+    :class:`StandingLayout`).  ``w2`` may be the route's 3-D broadcast view
+    (:func:`flat_w2`): a float32 tensor-core launch then reads its group
+    weights as they are (:func:`_broadcast_read`; counter
+    ``factored_masked_contract.broadcast``), every other launch expands it.
+    Returns the float32 [B, C] result; counts the launch."""
+    if len(pot.shape) != 3 or w1.dim() != 2 or w2.dim() not in (2, 3):
+        raise ValueError("expected pot [R1, R2, C], w1 [B, R1], w2 [B, R2] "
+                         "or [B, R2g, rep]")
     R1, R2, C = (int(d) for d in pot.shape)
     B = int(w1.shape[0])
-    if tuple(w1.shape) != (B, R1) or tuple(w2.shape) != (B, R2):
+    if (tuple(w1.shape) != (B, R1) or int(w2.shape[0]) != B
+            or int(np.prod(w2.shape[1:])) != R2):
         raise ValueError(
             f"shape mismatch: pot {tuple(pot.shape)}, w1 {tuple(w1.shape)}, "
             f"w2 {tuple(w2.shape)}"
@@ -683,6 +718,9 @@ def _launch_kernel(
 
     lib = load_library()
     stream = torch.cuda.current_stream(pot.device)
+    bcast = _broadcast_read(w2, cfg["src"])
+    if not bcast:
+        w2 = flat_w2(w2)
     if cfg["src"] == "fma":
         if isinstance(pot, StandingLayout):
             pot = pot.tensor()
@@ -691,9 +729,16 @@ def _launch_kernel(
         return out
     with torch.cuda.device(pot.device):
         op = _operand(lib, pot, cfg, stream)
-        w2c, ld_w2 = _tma_rows(w2.to(torch.bfloat16 if bf16 else torch.float32)
-                               .contiguous())
-        w2 = _as_launched(w2, w2c)
+        if bcast:  # the group weights [B, R2g], read through their strides
+            rep = int(w2.shape[2])
+            w2 = w2[:, :, 0]
+            ld_w2, cs_w2 = w2.stride()
+            TIMERS.add("factored_masked_contract.broadcast")
+        else:
+            rep, cs_w2 = 0, 1
+            w2c, ld_w2 = _tma_rows(
+                w2.to(torch.bfloat16 if bf16 else torch.float32).contiguous())
+            w2 = _as_launched(w2, w2c)
         w1 = _as_launched(w1, w1.to(torch.float32).contiguous())
         tiles = cfg["n_b"] * (1 if cfg["by_n"] else cfg["n_n"])
         ws, counters = out, None
@@ -706,7 +751,7 @@ def _launch_kernel(
             ws.data_ptr(), None if counters is None else counters.data_ptr(),
             SRC_CODE[src], int(cfg["by_n"]), B, R1, R2, C, cfg["bn"],
             cfg["n_b"], cfg["n_n"], cfg["nsplit"], cfg["kparts"],
-            cfg["grid"], cfg["nparts"], op.ld, ld_w2, op.exps,
+            cfg["grid"], cfg["nparts"], op.ld, ld_w2, cs_w2, rep, op.exps,
             stream.cuda_stream,
         )
     _check_rc(lib, rc, out.device, stream.cuda_stream)
@@ -875,12 +920,19 @@ def factored_masked_contract(
     contiguous [R2, R1, C] tensor, as :func:`big_clique_sep_message` passes
     it, is used as it is, and any other is copied once.
 
+    ``w2`` may also be [B, R2g, rep] with R2g * rep = R2: each group weight
+    repeated over ``rep`` consecutive r2, as :func:`big_clique_sep_message`
+    hands it over (a stride-0 view).  A float32 launch on the tensor cores
+    with ``rep`` a multiple of 32 reads it by broadcast, without the [B,
+    R2] copy (counter ``.broadcast``); everywhere else it is expanded first
+    (:func:`flat_w2`).
+
     When an input requires a gradient the call goes through a
-    ``torch.autograd.Function`` on every device: ``dw1`` and ``dw2`` are
-    this contraction again on a permuted potential (on the card: the
-    kernel), ``dpot`` is one matrix product (:func:`_contract_grads`).
-    bfloat16 is a serving dtype: a bf16 input that requires a gradient
-    raises.
+    ``torch.autograd.Function`` on every device (on an expanded ``w2``):
+    ``dw1`` and ``dw2`` are this contraction again on a permuted potential
+    (on the card: the kernel), ``dpot`` is one matrix product
+    (:func:`_contract_grads`).  bfloat16 is a serving dtype: a bf16 input
+    that requires a gradient raises.
 
     Each kernel launch adds one to the counter
     ``factored_masked_contract.launches`` (``utils.timing.TIMERS``); one
@@ -905,15 +957,16 @@ def factored_masked_contract(
                 "a bfloat16 input requires a gradient: bfloat16 is a storage "
                 "dtype for serving; learn in float32 or float64"
             )
-        return _FactoredContract.apply(pot, w1, w2, precision)
+        return _FactoredContract.apply(pot, w1, flat_w2(w2), precision)
     return _contract_on_device(pot, w1, w2, precision=precision)
 
 
 def kernel_or_plain(pot, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     """The contraction as the serving path runs it: the kernel for float32
     and bfloat16 on the card (``pot`` a tensor or a
-    :class:`StandingLayout`); the plain version for other dtypes there
-    (float64 references), and, through the wrapper, off the card."""
+    :class:`StandingLayout`, ``w2`` [B, R2] or the route's broadcast view
+    [B, R2g, rep]); the plain version for other dtypes there (float64
+    references), and, through the wrapper, off the card."""
     R1, R2, C = pot.shape
     with TIMERS.span("k1.launch", R1=R1, R2=R2, C=C, B=w1.shape[0],
                      dtype=pot.dtype, kept=None):
@@ -1064,9 +1117,10 @@ def big_clique_sep_message(
     over a mesh's model axis).  Otherwise f32 and bf16 tensors on the card
     run the CUDA kernel, a ``pot`` marked :func:`standing` as a
     :class:`StandingLayout` (what the launch reads of it is kept beside it
-    per layout); every other dtype, and all CPU tensors, run the plain
-    version.  Each call adds one to the counter
-    ``big_clique_sep_message.calls``.
+    per layout), with ``w2`` as the view [B, R2g, rep] where the rest
+    variables without evidence repeat it (:func:`flat_w2`); every other
+    dtype, and all CPU tensors, run the plain version.  Each call adds one
+    to the counter ``big_clique_sep_message.calls``.
     Returns [B, *sep_shape]."""
     cset = list(clique_vars)
     sset = list(sep_vars)
@@ -1117,12 +1171,14 @@ def big_clique_sep_message(
             # bfloat16 storage: the kernel reads pot and w2 in bfloat16 (w1
             # in float32), so round w2 before it is expanded, not after
             w2 = w2.to(torch.bfloat16)
-        # w2 broadcast over uncovered rest axes
+        # w2 broadcast over the uncovered rest axes, as a view: the kernel
+        # reads its group weights where it can, flat_w2 expands it
+        # elsewhere (here for contract_fn)
         n_un = int(np.prod([sizes[v] for v in un_vars])) or 1
         if n_un > 1:
-            w2 = w2[:, :, None].expand(B, w2.shape[1], n_un).reshape(B, -1)
-            TIMERS.add("route.materialized_bytes",
-                       w2.numel() * w2.element_size())
+            w2 = w2[:, :, None].expand(B, w2.shape[1], n_un)
+            if contract_fn is not None:
+                w2 = flat_w2(w2)
     else:
         g1_vars, g2_axes = [], rest
         R1, R2 = 1, R

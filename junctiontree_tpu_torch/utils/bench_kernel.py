@@ -1,6 +1,6 @@
 """Time the factored big-clique kernel alone on one NVIDIA GPU.
 
-    python junctiontree_tpu_torch/utils/bench_kernel.py [--root DIR] [--label NAME] [--step | --map | --chain]
+    python junctiontree_tpu_torch/utils/bench_kernel.py [--root DIR] [--label NAME] [--step | --map | --chain | --broadcast]
 
 Prints one JSON line per shape and dtype: the serving shapes of the
 2^18-state clique, one model shard of each (``Engine.shard_model`` over 4
@@ -18,7 +18,10 @@ reads the kept operand.  ``--map`` prints instead the tree-MAP program's
 step and its fused collects against the plain ones (:func:`map_lines`),
 ``--chain`` the chain program's step (the library's product and the row
 kernel) against its plain step, the product and ``reference_rows``
-(:func:`chain_lines`).
+(:func:`chain_lines`), ``--broadcast`` the float32 kernel at the posterior
+cell's shapes and B = 262,144 reading the route's broadcast view of ``w2``
+against the same call on the expanded operand, with and without the copy
+that expands it (:func:`broadcast_lines`).
 ``--step`` adds one line per dtype for a whole
 ``posterior_batch`` of the 2^18-state clique at B = 4096 (step ms, device
 time and launches by kernel from ``torch.profiler``, copy kernels, kernel
@@ -95,6 +98,8 @@ def main() -> int:
                     help="time only the tree-MAP program and its collects")
     ap.add_argument("--chain", action="store_true",
                     help="time only the chain program's step")
+    ap.add_argument("--broadcast", action="store_true",
+                    help="time only the broadcast read of w2 at B = 262,144")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -106,8 +111,10 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    if args.map or args.chain:
-        for line in (map_lines(dev) if args.map else chain_lines(dev)):
+    if args.map or args.chain or args.broadcast:
+        lines = (map_lines(dev) if args.map else chain_lines(dev)
+                 if args.chain else broadcast_lines(dev))
+        for line in lines:
             print(json.dumps({"label": args.label, **line}), flush=True)
         return 0
     g = torch.Generator(device=dev).manual_seed(0)
@@ -160,6 +167,69 @@ def main() -> int:
             print(json.dumps({"label": args.label, **step_line(dev, dtype)}),
                   flush=True)
     return 0
+
+
+TC_FLOPS = 989e12  # the bf16 tensor cores' peak of one H100 SXM
+
+
+def broadcast_lines(dev, B=262_144):
+    """The float32 kernel (six passes) at the posterior cell's two shapes
+    (R1, R2g, rep, C): (64, 64, 32, 2), the 18 marginals' R2 = 2,048, and
+    (64, 64, 64, 1), Z's 4,096, on a standing potential's kept operand, as
+    the serving path calls it.  ``broadcast_ms``: ``w2`` handed as the
+    route's view of the group weights [B, R2g] (read by broadcast);
+    ``materialised_ms``: the same call on the expanded [B, R2] operand;
+    ``expand_and_materialised_ms``: the copy that expands it and that call
+    (what the route ran before the broadcast read); ``plain_ms``: the
+    plain version.  ``bound_ms``: the larger of the bytes the broadcast
+    call reads and writes (the kept bf16 planes, 6 B a state, ``w1``, the
+    group weights, the output) over 3.35 TB/s and its 2·B·R1·R2·C
+    operations over 989 TFLOP/s; ``six_pass_floor_ms``: six times those
+    operations at that rate."""
+    import torch
+
+    from junctiontree_tpu_torch.ops import factored_contract as fc
+    from junctiontree_tpu_torch.utils.timing import TIMERS
+
+    for R1, R2g, rep, C in ((64, 64, 32, 2), (64, 64, 64, 1)):
+        R2 = R2g * rep
+        g = torch.Generator(device=dev).manual_seed(R2 + C)
+        rows = torch.rand((R2, R1, C), generator=g, device=dev)
+        fc.standing(rows, 1)
+        lay = fc.StandingLayout(rows, [1], [0], [2], True)
+        w1 = torch.rand((B, R1), generator=g, device=dev)
+        w2g = torch.rand((B, R2g), generator=g, device=dev)
+        view = w2g[:, :, None].expand(B, R2g, rep)
+        flat = view.reshape(B, -1)
+        key = "factored_masked_contract.broadcast"
+        before = TIMERS.counters()[key]
+        got = fc.factored_masked_contract(lay, w1, view)
+        engaged = TIMERS.counters()[key] - before
+        same = torch.equal(got, fc.factored_masked_contract(lay, w1, flat))
+        ops = 2 * B * R1 * R2 * C
+        nbytes = 6 * R1 * R2 * C + 4 * B * (R1 + R2g + C)
+        line = {
+            "step": "K1 broadcast read", "R1": R1, "R2": R2, "C": C, "B": B,
+            "rep": rep, "dtype": "float32", "precision": "highest",
+            "device": torch.cuda.get_device_name(0),
+            "broadcast_launches": engaged, "same_bits": same,
+            "broadcast_ms": device_ms(
+                lambda: fc.factored_masked_contract(lay, w1, view)),
+            "materialised_ms": device_ms(
+                lambda: fc.factored_masked_contract(lay, w1, flat)),
+            "expand_and_materialised_ms": device_ms(
+                lambda: fc.factored_masked_contract(
+                    lay, w1, view.reshape(B, -1))),
+            "plain_ms": device_ms(lambda: fc.reference_factored_contract(
+                lay.tensor(), w1, flat), iters=5, repeats=3),
+            "bound_ms": max(nbytes / HBM_BYTES_S, ops / TC_FLOPS) * 1e3,
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_S > ops / TC_FLOPS
+                         else "operations"),
+            "six_pass_floor_ms": 6 * ops / TC_FLOPS * 1e3,
+        }
+        del flat, view, w2g, w1, rows, lay, got
+        torch.cuda.empty_cache()
+        yield line
 
 
 # K1's kernels by name: the contraction kernels, the pot split, and a

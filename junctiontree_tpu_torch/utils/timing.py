@@ -46,6 +46,9 @@ COUNTERS = (
     # bf16 pot operands copied into an aligned buffer first
     "factored_masked_contract.splits",
     "factored_masked_contract.padded",
+    # float32 tensor-core launches that read the route's w2 by broadcast
+    # (its group weights, with no [B, R2] copy)
+    "factored_masked_contract.broadcast",
     # contractions of the big-clique route (``big_clique_sep_message``)
     "big_clique_sep_message.calls",
     # kernel operands found kept beside a standing potential, made (kept or

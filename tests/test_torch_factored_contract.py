@@ -392,7 +392,10 @@ def emulate_kernel(pot, w1, w2, n_sm=132, bf16=False, slots=None,
     lo; hi alone for "default"), runs the six passes (one), and undoes both
     scales on the stage's sums; narrow products (N <= 32) take the
     CUDA-core kernel's f32 steps of 16 and contiguous r2 ranges.  It shows
-    the index arithmetic and the split right where no card is."""
+    the index arithmetic and the split right where no card is.  A 3-D
+    ``w2`` [B, R2g, rep] is read as the float32 tensor-core kernel reads
+    the route's broadcast view: each stage's row is one group weight,
+    ``w2[b, k0 // rep]``."""
     R1, R2, C = pot.shape
     B = w1.shape[0]
     cfg = fc.launch_config(B, R1, R2, C, n_sm, bf16,
@@ -421,7 +424,10 @@ def emulate_kernel(pot, w1, w2, n_sm=132, bf16=False, slots=None,
                 k0 = step * bk
                 k1 = min(k0 + bk, R2)
                 a = torch.zeros(BM, bk)
-                a[:nrows, :k1 - k0] = w2[rows, k0:k1]
+                if w2.dim() == 3:  # the broadcast read: one value a row
+                    a[:nrows] = w2[rows, k0 // w2.shape[2], :1]
+                else:
+                    a[:nrows, :k1 - k0] = w2[rows, k0:k1]
                 by_rows = (pot.permute(1, 0, 2).reshape(R2, N) if r1 is None
                            else pot[r1])
                 b = torch.zeros(bk, BN)
@@ -550,6 +556,113 @@ def test_kernel_emulation_when_a_wave_walks_the_tiles(bf16):
         pot, w2 = pot.to(torch.bfloat16), w2.to(torch.bfloat16)
     want = fc.reference_factored_contract(pot, w1, w2)
     assert float((got - want).abs().max()) <= 2e-6 * float(want.abs().max())
+
+
+def _broadcast_case(R1, R2g, rep, C, B, seed):
+    """pot [R1, R2g * rep, C], w1 and the route's broadcast view of the
+    group weights g [B, R2g] over ``rep`` (a stride-0 view), with a row of
+    zeros, a row at the serving floor 1e-38 and a row whose groups mix
+    zeros and the floor with ordinary values."""
+    rng = np.random.default_rng(seed)
+    pot = _t(rng.random((R1, R2g * rep, C)).astype(np.float32))
+    w1 = _t(rng.random((B, R1)).astype(np.float32))
+    g = _t(rng.random((B, R2g)).astype(np.float32))
+    g[0] = 0.0
+    g[1] = 1e-38
+    g[2, ::2] = 0.0
+    g[2, 1::4] = 1e-38
+    return pot, w1, g[:, :, None].expand(B, R2g, rep)
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize(
+    "R1,R2g,rep,C,B,slots",
+    [(20, 4, 32, 2, 300, None), (40, 1, 64, 1, 130, None),
+     (10, 2, 128, 4, 129, None), (40, 1, 256, 2, 130, None),
+     # the "c" tiling, and r2 split over clusters at B = 4096 on an H100
+     (2, 2, 32, 70, 130, None), (40, 3, 64, 2, 4096, H100_CLUSTER_SLOTS)],
+)
+def test_kernel_emulation_reads_the_broadcast_view_bit_for_bit(
+        R1, R2g, rep, C, B, slots, precision):
+    """The float32 kernel's broadcast read of ``w2`` (each stage's row one
+    group weight, fetched by the stage's r2 step) gives the same bits as
+    its read of the expanded operand, at both precisions, with rows of
+    zeros and at 1e-38; and within 2e-6 of max|out| of the plain version
+    at "highest"."""
+    pot, w1, view = _broadcast_case(R1, R2g, rep, C, B, R1 + R2g + rep + C)
+    flat = view.reshape(B, -1)
+    got, cfg = emulate_kernel(pot, w1, view, slots=slots, precision=precision)
+    assert cfg["src"] == {"highest": "f32x6", "default": "f32x1"}[precision]
+    assert rep % cfg["bk"] == 0
+    want, _ = emulate_kernel(pot, w1, flat, slots=slots, precision=precision)
+    assert torch.equal(got, want)
+    assert (got[0] == 0).all() and (got[1] > 0).all()
+    if precision == "highest":
+        plain = fc.reference_factored_contract(pot, w1, flat)
+        assert float((got - plain).abs().max()) <= \
+            2e-6 * float(plain.abs().max())
+
+
+@pytest.mark.parametrize("rep", [32, 64, 3])
+@pytest.mark.parametrize("fn", ["wrapper", "plain"])
+def test_wrapper_and_plain_take_the_broadcast_view(fn, rep):
+    """``factored_masked_contract`` and the plain version take the route's
+    3-D view [B, R2g, rep] and give what the expanded [B, R2] operand
+    gives, bit for bit; on the CPU the view is expanded and counted in
+    ``route.materialized_bytes`` (B * R2 * 4 bytes), and no launch reads
+    it by broadcast."""
+    pot, w1, view = _broadcast_case(5, 3, rep, 2, 33, rep)
+    flat = view.reshape(33, -1).clone()
+    call = {"wrapper": fc.factored_masked_contract,
+            "plain": fc.reference_factored_contract}[fn]
+    before = TIMERS.counters()
+    got = call(pot, w1, view)
+    mid = TIMERS.counters()
+    want = call(pot, w1, flat)
+    after = TIMERS.counters()
+    assert torch.equal(got, want)
+    key = "route.materialized_bytes"
+    assert mid[key] - before[key] == flat.numel() * 4
+    assert after[key] == mid[key]  # a 2-D operand is used as it is
+    assert after["factored_masked_contract.broadcast"] == \
+        before["factored_masked_contract.broadcast"]
+
+
+def test_route_hands_kernel_or_plain_the_broadcast_view(monkeypatch):
+    """The route hands ``kernel_or_plain(pot, w1, w2)`` (its signature
+    unchanged) ``w2`` as the view of the group weights over the rest
+    variables without evidence: 3-D, stride 0 on its last axis, B * R2
+    elements; with ``contract_fn`` the expanded [B, R2] operand."""
+    import inspect
+
+    assert list(inspect.signature(fc.kernel_or_plain).parameters) == \
+        ["pot", "w1", "w2"]
+    seen = []
+    orig = fc.kernel_or_plain
+
+    def record(pot, w1, w2):
+        seen.append((tuple(pot.shape), w2))
+        return orig(pot, w1, w2)
+
+    monkeypatch.setattr(fc, "kernel_or_plain", record)
+    rng = np.random.default_rng(3)
+    shape = (2, 3, 2, 2, 4, 2)  # variables 0..5; 2 and 4 carry no evidence
+    pot = _t(rng.random(shape))
+    masks = {v: _t(rng.random((6, shape[v]))) for v in (0, 1, 3)}
+    got = fc.big_clique_sep_message(pot, list(range(6)), masks, [5])
+    (R1, R2, C), w2 = seen[0]
+    assert w2.dim() == 3 and w2.stride(2) == 0 and w2.shape[2] == 2 * 4
+    assert w2.numel() == 6 * R2 and R1 * R2 * C == pot.numel()
+    shards = []
+    want = fc.big_clique_sep_message(
+        pot, list(range(6)), masks, [5],
+        contract_fn=lambda p, a, b: shards.append(b) or
+        fc.reference_factored_contract(p, a, b))
+    assert shards[0].dim() == 2 and shards[0].numel() == w2.numel()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    dense = torch.einsum("abcdef,za,zb,zd->zf", pot.double(),
+                         *(masks[v].double() for v in (0, 1, 3)))
+    torch.testing.assert_close(got.double(), dense, rtol=1e-5, atol=0)
 
 
 @pytest.mark.parametrize("R1,R2,C,B", [(40, 128, 2, 300), (5, 70, 300, 130),
