@@ -30,6 +30,8 @@ builder's static schedule.
 
 from __future__ import annotations
 
+import math
+import weakref
 from typing import Dict, Hashable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -377,11 +379,37 @@ def _vars_states(sizes, vs):
 
 def _bcontract(semiring, operands, operand_vars, out_vars):
     """Contract mixed batched/unbatched operands; output gets the batch axis
-    iff any operand has it."""
+    iff any operand has it.  Counted in ``route.einsum_calls``; a recorded
+    call notes the contraction's logical shape on its ``route.einsum`` span
+    (:func:`_einsum_shape`)."""
     batched = any(vs and vs[0] == BATCH for vs in operand_vars)
     out = ([BATCH] + list(out_vars)) if batched else list(out_vars)
+    TIMERS.add("route.einsum_calls")
     with TIMERS.span("route.einsum"):
-        return semiring.contract(operands, operand_vars, out), batched
+        y = semiring.contract(operands, operand_vars, out)
+        if TIMERS.recording():
+            TIMERS.note(**_einsum_shape(operands, operand_vars, y))
+        return y, batched
+
+
+def _einsum_shape(operands, operand_vars, y) -> dict:
+    """What a planned contraction has to do, whatever implements it: ``B``
+    the batch (1 unbatched), ``states`` the product's states per row over
+    the union of the operands' scopes, ``bytes`` the operands' logical
+    bytes plus the output's."""
+    B, extent = 1, {}
+    for x, vs in zip(operands, operand_vars):
+        for d, v in zip(x.shape, vs):
+            if v == BATCH:
+                B = int(d)
+            else:
+                extent[v] = int(d)
+    states = 1
+    for d in extent.values():
+        states *= d
+    nbytes = sum(x.numel() * x.element_size() for x in operands)
+    return {"B": B, "states": states,
+            "bytes": nbytes + y.numel() * y.element_size()}
 
 
 def _try_big_clique_route(plan, semiring, ops, ovs, out_vars, min_states,
@@ -427,6 +455,8 @@ def _try_big_clique_route(plan, semiring, ops, ovs, out_vars, min_states,
     tp_sized = tp is not None and states >= tp[1]
 
     def refuse(reason):
+        if states >= min_states and (batched or msgs):
+            TIMERS.add("big_clique_sep_message.refused")
         if tp_sized:
             tp[3].append(
                 f"TP fallback (gathered onto one device) on {states:,}-state "
@@ -584,7 +614,12 @@ class BatchedProgramBuilder:
     contraction checks it.  ``full()`` returns the program as a function.
 
     ``rescale=True`` (linear sum-product only): every message is divided by
-    its max and the collect offsets accumulate into logZ.  The program then
+    its max and the collect offsets accumulate into logZ.  With
+    ``headroom=True`` as well (the serving program, whose marginal and
+    partition steps alone read the messages) the messages are scaled into
+    the dtype's headroom instead (:meth:`_collect_scale`,
+    :meth:`_distribute_scale`), which the entropy and joint programs, which
+    multiply further factors into them, leave out.  The program then
     follows the potentials' dtype as its storage dtype: with bfloat16
     potentials the rescaled messages are stored in bfloat16 too, while
     contractions accumulate in float32, maxima and the floor are taken in
@@ -606,6 +641,7 @@ class BatchedProgramBuilder:
         observed: Optional[Sequence[int]] = None,
         rescale: bool = False,
         tp=None,
+        headroom: bool = False,
     ):
         if rescale and semiring != SUM_PRODUCT:
             raise ValueError(
@@ -614,6 +650,8 @@ class BatchedProgramBuilder:
         self.plan = plan
         self.semiring = semiring
         self.rescale = rescale
+        # one clique has no message to scale
+        self.headroom = headroom and rescale and plan.tree.num_cliques > 1
         self.tp = tp
         tree = plan.tree
         if observed is None:
@@ -630,12 +668,21 @@ class BatchedProgramBuilder:
         # [B, clique_states] never materializes
         self.BELIEF_STATES_CAP = 1 << 12
         self._flags()
-        self.steps = (
-            [("up", c) for c in reversed(tree.topo_order) if c != tree.root]
-            + [("down", p) for p in tree.topo_order if tree.children[p]]
-            + [("marg", v) for v in range(plan.num_vars)]
-            + [("z", None)]
-        )
+        # the collect pass, leaves first, and the partition at the root;
+        # then, root first, each clique's distribute step and the marginals
+        # of the variables it homes, so that a clique's messages are done
+        # with as the pass leaves it
+        homed: Dict[int, List[int]] = {}
+        for v in range(plan.num_vars):
+            homed.setdefault(plan.var_to_clique[v], []).append(v)
+        self.steps = [("up", c) for c in reversed(tree.topo_order)
+                      if c != tree.root] + [("z", None)]
+        for p in tree.topo_order:
+            if tree.children[p]:
+                self.steps.append(("down", p))
+            self.steps += [("marg", v) for v in homed.get(p, [])]
+        self._dropped = None
+        self._room_kept = None
 
     def _states(self, c: int) -> int:
         return _vars_states(self.plan.sizes, self.plan.clique_vars[c])
@@ -698,23 +745,116 @@ class BatchedProgramBuilder:
             ovs.append([BATCH, v])
         return ops, ovs
 
-    def _rescale_msg(self, st, m, batched, track, storage):
-        """Divide a message by its max (per batch row when batched); the
-        collect pass accumulates log(max) into the logZ offset.  The max,
-        the floor and the division are in the contraction's dtype (float32
-        under low-precision storage, where 1e-38 would not survive a store);
-        only the rescaled message is stored in ``storage``."""
+    def _msg_max(self, m, batched):
+        """The message's maximum (per batch row when batched), floored, in
+        the contraction's dtype, shaped to divide it."""
         if batched:
             s = m.reshape(m.shape[0], -1).amax(dim=1).clamp_min(_PROG_TINY)
-            if track:
-                st[("logoff",)] = st[("logoff",)] + torch.log(s)
-            m = m / s.reshape((-1,) + (1,) * (m.dim() - 1))
-        else:
-            s = m.max().clamp_min(_PROG_TINY)
-            if track:
-                st[("logoff",)] = st[("logoff",)] + torch.log(s)
-            m = m / s
-        return m.to(storage)
+            return s.reshape((-1,) + (1,) * (m.dim() - 1))
+        return m.max().clamp_min(_PROG_TINY)
+
+    def _room(self, pots, dtype) -> List[float]:
+        """Per clique c, the headroom H_c of its contractions in ``dtype``:
+        log(largest value) - 1 - log(c's states) - log(max of c's
+        potential), at least 0.  Every other operand at most e^h, with the
+        h adding up to H_c, keeps every partial product of c's contractions
+        finite.  Read from the potentials once (one host sync) and kept
+        while they are the same tensors at the same version."""
+        key = [(id(x), None if not isinstance(x, torch.Tensor)
+                or x.is_inference() else x._version) for x in pots]
+        if self._room_kept is not None:
+            refs, was, room = self._room_kept
+            if was == key and None not in (k[1] for k in key) and all(
+                    r() is x for r, x in zip(refs, pots)):
+                return room
+        top = math.log(torch.finfo(dtype).max) - 1.0
+        dense = [x for x in pots if isinstance(x, torch.Tensor)
+                 and x.device.type != "meta"]
+        peaks = iter(torch.stack([x.detach().amax().double() for x in dense])
+                     .cpu().tolist() if dense else [])
+        room = []
+        for c, x in enumerate(pots):
+            if isinstance(x, torch.Tensor):
+                peak = next(peaks) if x.device.type != "meta" else 1.0
+            else:  # a ShardedPotential: its host copy
+                peak = float(x.host.max())
+            big = top - math.log(self._states(c))
+            room.append(min(max(big - math.log(peak), 0.0), big)
+                        if peak > 0 else big)
+        self._room_kept = ([weakref.ref(x) for x in pots], key, room)
+        return room
+
+    def _collect_scale(self, st, c, m, batched, pots, storage):
+        """Scale the collect message of ``c`` so that its max is e^X, X its
+        share of the parent's headroom (:meth:`_room`): the whole of it
+        split over the root's children, three quarters of it over another
+        parent's, whose distribute message takes the rest.  A message holds
+        its entries down to float32's least normal value, e^-87, below its
+        max: one divided to a max of one would lose those that the other
+        side of a frustrated lattice makes count (e^-130 and lower at the
+        20 x 20 Ising lattice's separators, where the evidence pulls the
+        two sides apart).  log(max) - X goes into the logZ offset and is
+        kept as ``("logs", c)``.  The max and the scaling are in the
+        contraction's dtype (float32 under low-precision storage); only the
+        scaled message is stored in ``storage``.  Without ``headroom`` the
+        message is divided by its max (X = 0)."""
+        s = self._msg_max(m, batched)
+        if not self.headroom:
+            ls = torch.log(s.reshape(-1) if batched else s)
+            st[("logoff",)] = st[("logoff",)] + ls
+            return (m / s).to(storage)
+        tree = self.plan.tree
+        par = tree.parent[c]
+        room = self._room(pots, s.dtype)[par]
+        X = room * (1.0 if par == tree.root else 0.75) / len(
+            tree.children[par])
+        top = math.log(torch.finfo(s.dtype).max) - 1.0
+        # a message of no mass (a row of impossible evidence) would take a
+        # factor past the dtype's largest value
+        lmax = torch.log(s.to(st[("logoff",)].dtype))
+        e = (X - (lmax.reshape(-1) if batched else lmax)).clamp_max(top)
+        st[("logoff",)] = st[("logoff",)] - e
+        st[("logs", c)] = -e
+        f = torch.exp(e).to(s.dtype)
+        return (m * (f.reshape(s.shape) if batched else f)).to(storage)
+
+    def _distribute_scale(self, st, p, k, m, batched, pots, storage):
+        """Scale the distribute message ``p`` -> ``k`` so that ``k``'s
+        belief sums to one, as far as the message's max stays between one
+        and e^D, D the quarter of k's headroom its collect messages leave
+        (all of it at a leaf), and keep the log of that belief's sum as
+        ``("ell", k)``.
+
+        The belief multiplies this message with k's collect messages: where
+        the evidence pulls the two sides of a frustrated model apart, their
+        product falls far below their maxima (e^-95 at the 20 x 20 Ising
+        lattice's cliques with both divided to a max of one), under
+        float32's least normal value, and the marginals drown.  The
+        belief's sum is known without forming it: k's belief sums over k's
+        separator to e^logs_k (``("logs", k)``) times the message times k's
+        collect message, and that product sums to p's belief sum, so log
+        sum = ell_p + logs_k - t for a message divided by e^t.  A message
+        is never scaled below a max of one, which would cut its own
+        entries' range.  An unbatched message keeps a max of one where p's
+        sum is per row (a row scale would batch it).  Without ``headroom``
+        the message is divided by its max."""
+        s = self._msg_max(m, batched)
+        if not self.headroom:
+            return (m / s).to(storage)
+        lmax = torch.log((s.reshape(-1) if batched else s).to(
+            st[("logoff",)].dtype))
+        # log of k's belief sum were the message divided by its own max
+        g = st[("ell", p)] + st[("logs", k)] - lmax
+        if not batched and g.dim() > 0:
+            st[("ell", k)] = g
+            return (m / s).to(storage)
+        room = self._room(pots, s.dtype)[k]
+        c = torch.clamp(g, -room * (0.25 if self.plan.tree.children[k]
+                                    else 1.0), 0.0)
+        st[("ell", k)] = g - c
+        top = math.log(torch.finfo(s.dtype).max) - 1.0
+        f = torch.exp((-(lmax + c)).clamp_max(top)).to(s.dtype)
+        return (m * (f.reshape(s.shape) if batched else f)).to(storage)
 
     def _upv(self, c):
         tree = self.plan.tree
@@ -750,7 +890,7 @@ class BatchedProgramBuilder:
                 ovs.append(self._upv(k))
             out, b = self._contract(ops, ovs, svars[tree.parent_sep[c]])
             if self.rescale:
-                out = self._rescale_msg(st, out, b, True, storage)
+                out = self._collect_scale(st, c, out, b, pots, storage)
             st[("up", c)] = out
         elif kind == "down":
             p = c
@@ -760,19 +900,23 @@ class BatchedProgramBuilder:
                 pops.append(st[("down", p)])
                 povs.append(self._downv(p))
             if self._divide_path(p):
-                ops, ovs = list(pops), list(povs)
-                for k2, _ in kids:
-                    ops.append(st[("up", k2)])
-                    ovs.append(self._upv(k2))
-                bel, bb = self._contract(ops, ovs, list(plan.clique_vars[p]))
-                st[("bel", p)] = bel
+                if ("bel", p) not in st:
+                    ops, ovs = list(pops), list(povs)
+                    for k2, _ in kids:
+                        ops.append(st[("up", k2)])
+                        ovs.append(self._upv(k2))
+                    st[("bel", p)], _ = self._contract(
+                        ops, ovs, list(plan.clique_vars[p]))
+                bel = st[("bel", p)]
+                bb = self.node_b[p]
                 belv = ([BATCH] if bb else []) + list(plan.clique_vars[p])
                 for k, _ in kids:
                     out = divide_project(
                         self.semiring, bel, belv, st[("up", k)], self._upv(k)
                     )
                     if self.rescale:
-                        out = self._rescale_msg(st, out, bb, False, storage)
+                        out = self._distribute_scale(st, p, k, out, bb, pots,
+                                                     storage)
                     st[("down", k)] = out
                 return
             for i, (k, sep) in enumerate(kids):
@@ -783,7 +927,8 @@ class BatchedProgramBuilder:
                         ovs.append(self._upv(k2))
                 out, b = self._contract(ops, ovs, svars[sep])
                 if self.rescale:
-                    out = self._rescale_msg(st, out, b, False, storage)
+                    out = self._distribute_scale(st, p, k, out, b, pots,
+                                                 storage)
                 st[("down", k)] = out
         elif kind == "marg":
             v = c
@@ -805,49 +950,105 @@ class BatchedProgramBuilder:
                 out = out[None, :].expand(B, out.shape[0])
             st[("marg", v)] = out
         elif kind == "z":
+            # at the root, before the distribute pass; a root small enough
+            # keeps its belief for that pass and its marginals
             root = tree.root
-            if ("bel", root) in st:
+            rops, rovs = self._node_ops(root, st, pots, masks)
+            if self._states(root) <= self.BELIEF_STATES_CAP:
+                st[("bel", root)], _ = self._contract(
+                    rops, rovs, list(plan.clique_vars[root])
+                )
                 zv = ([BATCH] if self.node_b[root] else []) + list(
                     plan.clique_vars[root]
                 )
                 z, b = self._contract([st[("bel", root)]], [zv], [])
             else:
-                rops, rovs = self._node_ops(root, st, pots, masks)
                 z, b = self._contract(rops, rovs, [])
             if not b:
                 z = z.reshape(()).expand(B)
             if self.rescale:
                 # logZ = log(z_scaled) + accumulated collect offsets
-                # (impossible evidence: z_scaled == 0 -> logZ = -inf)
+                # (impossible evidence: z_scaled == 0 -> logZ = -inf);
+                # log(z_scaled) is the log of the root's belief sum
+                out = z.dtype
+                z = z.to(st[("logoff",)].dtype)
                 z = torch.where(
                     z > 0, torch.log(z.clamp_min(_PROG_TINY)),
                     torch.full_like(z, -float("inf")),
                 )
-                z = z + st[("logoff",)].expand(z.shape)
+                if self.headroom:
+                    st[("ell", root)] = z if b else z[0]
+                z = (z + st[("logoff",)].expand(z.shape)).to(out)
             st[("z",)] = z
         else:  # pragma: no cover
             raise AssertionError(kind)
+
+    def _touches(self, s) -> List[tuple]:
+        """The named tensors step ``s`` may read or write."""
+        tree = self.plan.tree
+        kind, c = s
+        if kind == "up":
+            return [("up", c), ("logs", c)] + [
+                ("up", k) for k, _ in tree.children[c]]
+        if kind == "marg":
+            c = self.plan.var_to_clique[c]
+        elif kind == "z":
+            c = tree.root
+        keys = [("up", k) for k, _ in tree.children[c]] + [("bel", c)]
+        if c != tree.root:
+            keys.append(("down", c))
+        if kind == "z":
+            keys.append(("ell", c))
+        if kind == "down":
+            keys.append(("ell", c))
+            for k, _ in tree.children[c]:
+                keys += [("down", k), ("logs", k), ("ell", k)]
+        return keys
+
+    def _drops(self) -> List[List[tuple]]:
+        """Per step of the whole schedule, the messages and beliefs that no
+        later step touches: a run of the whole schedule drops them after
+        it, so a call holds the collect messages and the distribute
+        frontier, not every message of both passes."""
+        if self._dropped is None:
+            last: Dict[tuple, int] = {}
+            for i, s in enumerate(self.steps):
+                for key in self._touches(s):
+                    last[key] = i
+            self._dropped = [[] for _ in self.steps]
+            for key, i in last.items():
+                self._dropped[i].append(key)
+        return self._dropped
 
     def run(self, pots, masks, kinds=None) -> Dict[tuple, torch.Tensor]:
         """Run the schedule (only the steps whose kind is in ``kinds``, when
         given) and return the named tensors: ``("up", c)``, ``("down", c)``,
         ``("marg", v)``, ``("z",)``.  The message steps alone
         (``kinds=("up", "down", "z")``) are what the entropy and joint
-        programs build on."""
+        programs build on.  The whole schedule (``kinds=None``) drops each
+        message and belief after its last step (:meth:`_drops`) and returns
+        the marginals and z."""
         st: Dict[tuple, torch.Tensor] = {}
+        drops = self._drops() if kinds is None else None
         B = masks[0].shape[0] if masks else 1
         storage = pots[0].dtype
         if self.rescale:
+            # the headroom puts each collect offset at tens of nats, where
+            # float32 would round every one of them: float64 then
             st[("logoff",)] = torch.zeros(
                 (),
-                dtype=torch.float32 if storage in _LOW_PRECISION else storage,
+                dtype=torch.float32 if storage in _LOW_PRECISION
+                else torch.float64 if self.headroom else storage,
                 device=pots[0].device,
             )
-        for s in self.steps:
+        for i, s in enumerate(self.steps):
             if kinds is None or s[0] in kinds:
                 # at: the clique (up, down) or the variable (marg)
                 with TIMERS.span("program.step", kind=s[0], at=s[1]):
                     self._run_step(s, st, pots, masks, B, storage)
+            if drops is not None:
+                for key in drops[i]:
+                    st.pop(key, None)
         return st
 
     def full(self):
@@ -949,7 +1150,8 @@ def batched_propagate_program(
     per variable (this is what ``Engine.posterior_batch`` does).  ``tp``:
     see :func:`_try_big_clique_route`."""
     return BatchedProgramBuilder(
-        plan, semiring, observed, rescale=rescale, tp=tp).full()
+        plan, semiring, observed, rescale=rescale, tp=tp,
+        headroom=True).full()
 
 
 def resolve_device(device) -> torch.device:

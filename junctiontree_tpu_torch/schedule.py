@@ -29,6 +29,10 @@ class Plan:
     tri: Triangulation
     tree: JunctionTreeStructure
     var_to_clique: List[int]            # var id -> clique where evidence mask lands
+    # the elimination order that won: the heuristic asked for, or under
+    # "auto" "min_fill", "bandwidth", "portfolio16" or "anneal"; None for a
+    # plan loaded from JSON (not part of the JSON)
+    order: Optional[str] = None
 
     @property
     def clique_vars(self) -> List[List[int]]:
@@ -84,6 +88,7 @@ class Plan:
             # with B x max_sep_states (see Engine.max_feasible_batch)
             "max_sep_states": max(sep_states) if sep_states else 0,
             "tree_depth": depth,
+            "order": self.order,
         }
         object.__setattr__(self, "_stats_cache", out)
         return dict(out)
@@ -203,10 +208,16 @@ def compile_plan(
     compilers give the same plan.
 
     heuristic: elimination-order heuristic — 'auto' (default: min_fill,
-    auto-escalating to a randomized portfolio when greedy min-fill lands a
-    clique above ``config.DEFAULT.escalate_min_states`` — greedy min-fill is
-    2-6x over the optimal treewidth exactly on the models where it hurts
-    most), 'min_fill' (reference parity, no escalation), 'min_degree',
+    auto-escalating when greedy min-fill lands a clique above
+    ``config.DEFAULT.escalate_min_states`` — greedy min-fill is 2-6x over
+    the optimal treewidth exactly on the models where it hurts most — to a
+    randomized portfolio, then annealing while the plan stays above it,
+    with a Cuthill-McKee bandwidth order as one more candidate, keeping the
+    plan with the smaller largest clique, then total states;
+    ``Plan.order`` and ``stats()["order"]`` name the winner, and the
+    counter ``compile.escalations`` counts the compiles that escalate),
+    'min_fill'
+    (reference parity, no escalation), 'min_degree',
     'min_weight', 'portfolio[N]' (run all three plus N randomized restarts,
     keep the smallest total clique state space), or 'anneal[S]' (portfolio
     seed + simulated annealing over elimination orders for S seconds,
@@ -275,13 +286,22 @@ def compile_plan(
             tri = min_fill_triangulation(
                 int_factors, int_sizes, heuristic=heuristic
             )
+        order = heuristic
         if escalate:
             # auto-escalation: when greedy min-fill lands a clique above the
             # threshold, a randomized portfolio usually shrinks it by orders
-            # of magnitude (hailfinder-class: 31M -> ~1M states) for a
-            # bounded one-time compile cost
+            # of magnitude (hailfinder-class: 31M -> ~1M states), and
+            # annealing recovers most of what is still above it; the
+            # bandwidth sweep (milliseconds; on a lattice the optimal width)
+            # is one more candidate beside them.  The better plan (largest
+            # clique, then total states) wins, and a tie keeps the earlier
             from .config import DEFAULT as _CFG
-            from .triangulate import portfolio_triangulation, total_states
+            from .triangulate import (
+                anneal_triangulation,
+                bandwidth_triangulation,
+                portfolio_triangulation,
+                total_states,
+            )
 
             def worst(t):
                 return max(
@@ -294,25 +314,24 @@ def compile_plan(
                 )
 
             if worst(tri) > _CFG.escalate_min_states:
+                TIMERS.add("compile.escalations")
                 tri2 = portfolio_triangulation(
                     int_factors, int_sizes, random_restarts=16
                 )
                 if better(tri2, tri):
-                    tri = tri2
-                    nat = None
-            if worst(tri) > _CFG.escalate_min_states:
-                # still above threshold: annealing recovers most of the
-                # remaining gap for a bounded one-time compile cost.  Fixed
-                # step budget (not wall clock) so the triangulation is
-                # deterministic across processes and packages.
-                from .triangulate import anneal_triangulation
-
-                tri3 = anneal_triangulation(
-                    int_factors, int_sizes, steps=2000
-                )
-                if better(tri3, tri):
-                    tri = tri3
-                    nat = None
+                    tri, order, nat = tri2, "portfolio16", None
+                if worst(tri) > _CFG.escalate_min_states:
+                    # a fixed step budget (not wall clock), so the
+                    # triangulation is deterministic across processes and
+                    # packages
+                    tri3 = anneal_triangulation(
+                        int_factors, int_sizes, steps=2000
+                    )
+                    if better(tri3, tri):
+                        tri, order, nat = tri3, "anneal", None
+                tri4 = bandwidth_triangulation(int_factors, int_sizes)
+                if better(tri4, tri):
+                    tri, order, nat = tri4, "bandwidth", None
     with TIMERS.phase("compile.treebuild"):
         if nat is not None:
             from .treebuild import build_junction_tree_from_edges
@@ -340,6 +359,7 @@ def compile_plan(
         tri=tri,
         tree=tree,
         var_to_clique=var_to_clique,
+        order=order,
     )
     log_compile_stats(plan)
     return plan

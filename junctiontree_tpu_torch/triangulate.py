@@ -274,6 +274,45 @@ def triangulation_from_order(
     )
 
 
+def bandwidth_order(
+    factors: Sequence[Sequence[int]], num_vars: int
+) -> List[int]:
+    """Cuthill-McKee order of the moral graph: a breadth-first sweep from a
+    vertex of least degree, each vertex's unvisited neighbours taken in
+    order of degree; a further component starts from its own vertex of
+    least degree.  Ties break on the smaller id, so the order is
+    deterministic.  On a lattice the sweep runs along the anti-diagonals,
+    so the band (and every elimination clique) is as wide as the lattice,
+    whatever the labelling, where greedy min-fill lands several wider."""
+    adj = build_adjacency(factors, num_vars)
+    deg = [len(a) for a in adj]
+    seen = [False] * num_vars
+    order: List[int] = []
+    for start in sorted(range(num_vars), key=lambda v: (deg[v], v)):
+        if seen[start]:
+            continue
+        seen[start] = True
+        head = len(order)
+        order.append(start)
+        while head < len(order):
+            v = order[head]
+            head += 1
+            for u in sorted((u for u in adj[v] if not seen[u]),
+                            key=lambda u: (deg[u], u)):
+                seen[u] = True
+                order.append(u)
+    return order
+
+
+def bandwidth_triangulation(
+    factors: Sequence[Sequence[int]], sizes: Sequence[int]
+) -> Triangulation:
+    """Eliminate in :func:`bandwidth_order` (milliseconds on a lattice of
+    hundreds of variables)."""
+    return triangulation_from_order(
+        factors, sizes, bandwidth_order(factors, len(sizes)))
+
+
 def _order_cost(
     factors: Sequence[Sequence[int]],
     sizes: Sequence[int],

@@ -49,8 +49,16 @@ COUNTERS = (
     # float32 tensor-core launches that read the route's w2 by broadcast
     # (its group weights, with no [B, R2] copy)
     "factored_masked_contract.broadcast",
-    # contractions of the big-clique route (``big_clique_sep_message``)
+    # contractions of the big-clique route (``big_clique_sep_message``), and
+    # those of a clique of at least ``big_clique_min_states`` states with
+    # batched operands that the route refused (``executor``: a message
+    # crossing the separator boundary, an operand outside the clique)
     "big_clique_sep_message.calls",
+    "big_clique_sep_message.refused",
+    # the general program's planned contractions (``executor._bcontract``)
+    "route.einsum_calls",
+    # compiles whose greedy min-fill plan escalated (``schedule``)
+    "compile.escalations",
     # kernel operands found kept beside a standing potential, made (kept or
     # not), and put out for another (``ops.factored_contract.kept``)
     "kept.hits",
@@ -239,6 +247,11 @@ class PhaseTimers:
             return _NO_SPAN
         return _Range(self, name, attrs, False)
 
+    def recording(self) -> bool:
+        """Whether a call is being recorded (spans and notes take effect):
+        a site computes what it notes only then."""
+        return self._open.call is not None
+
     def note(self, **attrs) -> None:
         """Add ``attrs`` to the innermost open span (nothing outside a
         recorded call)."""
@@ -307,12 +320,13 @@ def device_trace(path: str) -> Iterator[None]:
 
 
 def log_compile_stats(plan) -> None:
-    """Structured one-line compile log: treewidth, clique states, depth."""
+    """Structured one-line compile log: treewidth, clique states, depth,
+    the elimination order that won."""
     st = plan.stats()
     logger.info(
         "compiled plan: vars=%d factors=%d cliques=%d seps=%d treewidth=%d "
-        "max_states=%d total_states=%d depth=%d",
+        "max_states=%d total_states=%d depth=%d order=%s",
         st["num_vars"], st["num_factors"], st["num_cliques"],
         st["num_separators"], st["treewidth"], st["max_clique_states"],
-        st["total_clique_states"], st["tree_depth"],
+        st["total_clique_states"], st["tree_depth"], st["order"],
     )

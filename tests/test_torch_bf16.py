@@ -71,18 +71,26 @@ def test_bf16_messages_stored_in_bf16_logz_accumulated_in_f32(monkeypatch):
     the logZ offsets float32: spy on the program's rescaling."""
     factors, sizes, values, tree, masks = _grid_case(B=4)
     seen = []
-    inner = BatchedProgramBuilder._rescale_msg
 
-    def spy(self, st, m, batched, track, storage):
-        out = inner(self, st, m, batched, track, storage)
-        seen.append((m.dtype, out.dtype, st[("logoff",)].dtype))
-        return out
+    def spying(name):
+        inner = getattr(BatchedProgramBuilder, name)
 
-    monkeypatch.setattr(BatchedProgramBuilder, "_rescale_msg", spy)
+        def spy(self, st, *args):
+            m, storage = args[-4], args[-1]
+            out = inner(self, st, *args)
+            seen.append((name, m.dtype, out.dtype, st[("logoff",)].dtype))
+            assert storage == torch.bfloat16
+            return out
+
+        monkeypatch.setattr(BatchedProgramBuilder, name, spy)
+
+    spying("_collect_scale")
+    spying("_distribute_scale")
     tree.engine(device="cpu", dtype=torch.bfloat16).set_potentials(values) \
         .posterior_batch(masks, mode="general")
-    assert seen and set(seen) == {
-        (torch.float32, torch.bfloat16, torch.float32)}
+    assert set(seen) == {
+        (name, torch.float32, torch.bfloat16, torch.float32)
+        for name in ("_collect_scale", "_distribute_scale")}
 
 
 def test_bf16_impossible_evidence_keeps_the_contract():

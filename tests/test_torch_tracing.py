@@ -8,6 +8,7 @@ range.  Counters are always on.  Imports no JAX.
 """
 
 import json
+import math
 import types
 
 import numpy as np
@@ -114,9 +115,10 @@ def test_one_root_per_call_with_the_steps_under_it(routed):
                    for s in c.spans)
         steps = c.named("program.step")
         assert all(s.parent == 0 for s in steps)
-        # one clique: a marginal per variable and Z
+        # one clique: Z after the (empty) collect pass, then a marginal
+        # per variable
         assert [(s.attrs["kind"], s.attrs["at"]) for s in steps] == (
-            [("marg", v) for v in range(N)] + [("z", None)])
+            [("z", None)] + [("marg", v) for v in range(N)])
         assert [s.parent for s in c.named("serve.masks")] == [0]
         assert [s.parent for s in c.named("program.normalize")] == [0]
 
@@ -373,3 +375,105 @@ def test_one_counter_mechanism(routed):
             c["factored_masked_contract.launches_backward"],
         "big_clique_route_calls": c["big_clique_sep_message.calls"],
     }
+
+
+# -- the general program's planned contractions and the compile ladder --------
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+def test_planned_einsum_spans_carry_their_shapes(dtype):
+    """One clique over a (2 states) and b (3), evidence on a, B = 4: the
+    belief, Z and the two marginals, each with its batch, the states of the
+    union of its operands' scopes and their bytes plus the output's."""
+    tree = jt.create_junction_tree([["a", "b"]], {"a": 2, "b": 3})
+    eng = tree.engine(device="cpu", dtype=dtype).set_potentials(
+        [np.arange(1.0, 7.0).reshape(2, 3)])
+    masks = {"a": np.ones((4, 2), np.float32)}
+    before = TIMERS.counters()["route.einsum_calls"]
+    (call,), _ = _traced(lambda: eng.posterior_batch(masks))
+    spans = call.named("route.einsum")
+    w = _itemsize(eng)
+    bel = 4 * 6 * w
+    assert [s.attrs for s in spans] == [
+        {"B": 4, "states": 6, "bytes": 6 * w + 4 * 2 * w + bel},  # belief
+        {"B": 4, "states": 6, "bytes": bel + 4 * w},              # Z
+        {"B": 4, "states": 6, "bytes": bel + 4 * 2 * w},          # P(a)
+        {"B": 4, "states": 6, "bytes": bel + 4 * 3 * w},          # P(b)
+    ]
+    assert all(call.spans[s.parent].name == "program.step" for s in spans)
+    assert call.counters["route.einsum_calls"] == 4
+    # two calls ran (the warm one and the traced one)
+    assert TIMERS.counters()["route.einsum_calls"] == before + 8
+
+
+def test_einsum_calls_and_refusals_count_what_they_say(monkeypatch):
+    """On a 5 x 5 spin glass with the route's threshold lowered to 2^4:
+    every planned contraction is counted, and so is every contraction of a
+    clique of 2^4 states or more with batched operands that fell to it
+    (the route refused it)."""
+    from junctiontree_tpu_torch import executor
+    from junctiontree_tpu_torch.models import ising_grid_model
+
+    monkeypatch.setattr(jt.config.DEFAULT, "big_clique_min_states", 1 << 4)
+    factors, sizes, values = ising_grid_model(5, 5, 10.0, seed=1)
+    tree = jt.create_junction_tree(factors, sizes)
+    eng = tree.engine(device="cpu").set_potentials(values)
+    masks = jt.batch_masks_sparse(tree.plan, jt.random_evidence_batch(
+        tree.plan, 6, list(sizes)[::3], seed=2))
+    eng.posterior_batch(masks)     # the program is built outside the count
+    seen = {"calls": 0, "refused": 0}
+    inner = executor._bcontract
+
+    def spy(semiring, ops, ovs, out):
+        seen["calls"] += 1
+        scope = {v for vs in ovs if not (vs and vs[0] == executor.BATCH)
+                 for v in vs}
+        batched = any(vs and vs[0] == executor.BATCH for vs in ovs)
+        if scope and batched and math.prod(
+                tree.plan.sizes[v] for v in scope) >= 1 << 4:
+            seen["refused"] += 1
+        return inner(semiring, ops, ovs, out)
+
+    monkeypatch.setattr(executor, "_bcontract", spy)
+    before = TIMERS.counters()
+    eng.posterior_batch(masks)
+    after = TIMERS.counters()
+    assert after["route.einsum_calls"] - before["route.einsum_calls"] \
+        == seen["calls"] > 0
+    assert after["big_clique_sep_message.refused"] \
+        - before["big_clique_sep_message.refused"] == seen["refused"] > 0
+    assert after["big_clique_sep_message.calls"] \
+        > before["big_clique_sep_message.calls"]
+
+
+def test_compile_escalations_count_and_name_the_winner(monkeypatch):
+    """A 10 x 10 lattice's min-fill plan holds 2^14 states; with the
+    threshold at 2^11 the compile escalates once, the portfolio runs as it
+    always did, and the bandwidth order (2^11 states) beats it.  Under the
+    default threshold nothing escalates."""
+    from junctiontree_tpu_torch import triangulate
+    from junctiontree_tpu_torch.models import ising_grid_model
+
+    factors, sizes, _ = ising_grid_model(10, 10, 10.0)
+    n = TIMERS.counters()["compile.escalations"]
+    plan = jt.compile_plan(factors, sizes)
+    assert TIMERS.counters()["compile.escalations"] == n
+    assert plan.stats()["order"] == "min_fill"
+    assert plan.stats()["max_clique_states"] == 1 << 14
+
+    ran = []
+    inner = triangulate.portfolio_triangulation
+
+    def spy(*a, **k):
+        ran.append(k.get("random_restarts"))
+        return inner(*a, **k)
+
+    monkeypatch.setattr(triangulate, "portfolio_triangulation", spy)
+    monkeypatch.setattr(jt.config.DEFAULT, "escalate_min_states", 1 << 11)
+    plan = jt.compile_plan(factors, sizes)
+    assert ran[0] == 16  # annealing then seeds from a portfolio of its own
+    assert TIMERS.counters()["compile.escalations"] == n + 1
+    assert plan.stats()["order"] == "bandwidth"
+    assert plan.stats()["max_clique_states"] == 1 << 11
+    assert jt.compile_plan(factors, sizes, heuristic="min_degree").stats()[
+        "order"] == "min_degree"
+    assert TIMERS.counters()["compile.escalations"] == n + 1
